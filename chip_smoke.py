@@ -24,13 +24,41 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              1 warm-up + 3 timed outer steps, then one fp32 step. Loss and
              every outer gradient must be finite, syn_lr >= 0.001, and each
              kernel launched exactly once per outer step.
+5. check_fused — the fused no-grad hallucinator kernel (``ops.hal_fused``)
+             against its plain version and against ``hal_fwd``, fp32, at
+             B=4, F=8, 32x32 and at the evaluation shape B=50, F=16,
+             112x112 (max error <= 1e-5 of the largest |value|), and timed
+             there beside its plain version, cuDNN's conv3d and ``hal_fwd``
+             in fp32 on the same inputs.
+6. pipeline — the paper's pipeline at full width (ConvNet3D 64/128/128, 50
+             classes, 112x112x16, synthetic data): the buffer driver
+             (``drivers.buffer``) trains 1 expert for 3 epochs in bf16;
+             ``drivers.distill_s2d.run`` (``s2d_MTT_ms``, bf16) takes 3
+             outer steps from that buffer and evaluates the multi-static
+             set at iterations 0 and 2 with num_eval=2 fresh fp32 nets,
+             the evaluation depth cut to epoch_eval_train=10 (the preset
+             has 500). Every adjacent snapshot pair must differ, every
+             accuracy be finite and in [0, 1], the artifacts and PNG grids
+             exist, and ``hal_fused`` be launched once per evaluation
+             training step. Then one evaluation training run and one test
+             pass are timed on the distilled state.
+7. expert  — one epoch of expert training (``distill.buffer.train_expert``)
+             at full width and the preset's batch of 256 (two steps), in
+             bf16 and in fp32 from the same parameters, batches, flips and
+             dropout masks. The yardstick is bf16's own rounding: a third,
+             fp32 epoch from the initial parameters rounded to bf16. The
+             bf16 parameter change must be within 3x as far from the fp32
+             one (relative norm) as that rounded epoch's is. Then a bf16
+             step of 256 is timed.
 
-Then the ``kernels`` line (launch counts from the bf16 slice run), the
-card's name and power limit, and the ``ok`` line.
+Then the ``kernels`` line (launch counts: the three ``hal_conv`` kernels
+from the bf16 slice run, ``hal_fused`` from the pipeline run), the card's
+name and power limit, and the ``ok`` line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -45,25 +73,45 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: CUDA is not available; this script needs a GPU")
 
-from video_distillation_torch.config import get_preset  # noqa: E402
+from video_distillation_torch.config import BufferConfig, get_preset  # noqa: E402
+from video_distillation_torch.distill.buffer import (  # noqa: E402
+    ExpertDraws, train_expert)
+from video_distillation_torch.distill.evaluate import (  # noqa: E402
+    TEST_BATCH, EvalConfig, run_test_pass, sample_test_batches, train_synset)
 from video_distillation_torch.distill.mtt import (  # noqa: E402
     S2DHyper, S2DMTTStep, TrajectoryBuffer, flat_param_template)
 from video_distillation_torch.distill.s2d import (  # noqa: E402
     S2DConfig, init_s2d_momentum, init_s2d_state)
+from video_distillation_torch.drivers import buffer as buffer_driver  # noqa: E402
 from video_distillation_torch.drivers.common import load_data  # noqa: E402
 from video_distillation_torch.drivers.distill_s2d import run  # noqa: E402
 from video_distillation_torch.models.hallucinator import \
     init_hallucinator  # noqa: E402
 from video_distillation_torch.ops import build, hal_conv as hc  # noqa: E402
+from video_distillation_torch.ops import hal_fused as hf  # noqa: E402
 from video_distillation_torch.utils.device import use_exact_fp32  # noqa: E402
 from video_distillation_torch.utils.logging import MetricLogger  # noqa: E402
 
 SOURCE = "video_distillation_torch/csrc/hal_conv.cu"
+FUSED_SOURCE = "video_distillation_torch/csrc/hal_fused.cu"
 REPLACES = {"hal_fwd": "video_distillation_tpu/ops/pallas/hal_vjp.py:79",
             "hal_dgrad": "video_distillation_tpu/ops/pallas/hal_vjp.py:130",
-            "hal_wgrad": "video_distillation_tpu/ops/pallas/hal_vjp.py:185"}
+            "hal_wgrad": "video_distillation_tpu/ops/pallas/hal_vjp.py:185",
+            "hal_fused":
+                "video_distillation_tpu/ops/pallas/hallucinator_kernel.py:33"}
 BF16_ULP = 2.0 ** -7
 SLICE = dict(num_classes=50, frames=16, im=112, syn_steps=10)
+# the evaluation's training batch: all 50 synthetic videos (spc=2, vpc=1)
+EVAL_SHAPE = (50, 16, 112, 112)
+PIPELINE = dict(dataset="synthetic_c50_n2_t2_f16_im112", expert_epochs=3,
+                iterations=2, eval_it=2, num_eval=2, epoch_eval_train=10)
+PAPER_EVAL = dict(epoch_eval_train=500, num_eval=3)  # the s2d_MTT_ms preset
+# 300 train clips: two steps of the preset's batch_train=256 an epoch
+EXPERT = dict(dataset="synthetic_c50_n6_t1_f16_im112", batch=256,
+              timed_epochs=2)
+# the bf16 epoch may stray from fp32 at most this many times as far as an
+# fp32 epoch from bf16-rounded initial parameters does
+EXPERT_BF16_FACTOR = 3.0
 
 
 def emit(obj):
@@ -130,7 +178,7 @@ def check_bf16(name, out, ref):
 def phase_build():
     t0 = time.perf_counter()
     secs = build.build_all()
-    log = build.build_log("hal_conv").splitlines()
+    log = "\n".join(build.build_log(n) for n in build.SOURCES).splitlines()
     ptxas = [ln.strip() for ln in log if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": secs, "ptxas": ptxas})
@@ -346,6 +394,213 @@ def phase_slice(tmp):
     return launches
 
 
+def phase_check_fused():
+    """hal_fused against its plain version and hal_fwd (fp32) at a small
+    shape and at the evaluation shape; times at the evaluation shape."""
+    st, dy, wt, bs, _ = inputs(4, 8, 32, 32, torch.float32, 2)
+    y = hf.hal_fused(st, dy, wt, bs)
+    check_max("hal_fused fp32 small", y, hf.hal_fused_plain(st, dy, wt, bs),
+              1e-5)
+    check_max("hal_fused vs hal_fwd small", y,
+              hc.hal_fwd(st, dy, wt, bs).permute(0, 2, 3, 4, 1), 1e-5)
+
+    b, f, h, w = EVAL_SHAPE
+    st, dy, wt, bs, _ = inputs(b, f, h, w, torch.float32, 3)
+    y = hf.hal_fused(st, dy, wt, bs)
+    err = check_max("hal_fused fp32 eval shape", y,
+                    hf.hal_fused_plain(st, dy, wt, bs), 1e-5)
+    check_max("hal_fused vs hal_fwd eval shape", y,
+              hc.hal_fwd(st, dy, wt, bs).permute(0, 2, 3, 4, 1), 1e-5)
+    del y
+    emit({"phase": "check_fused", "shapes": [(4, 8, 32, 32), EVAL_SHAPE],
+          "max_abs_err": err, "ok": True})
+
+    # the library call is cuDNN's conv3d on the materialised 4-channel input
+    x4 = torch.cat([st.permute(0, 3, 1, 2).unsqueeze(2).expand(b, 3, f, h, w),
+                    dy.permute(0, 4, 1, 2, 3)], dim=1).contiguous()
+    bw, peak = card_peaks(torch.cuda.get_device_name(0))
+    hw = h * w
+    # bytes: each fp32 input read once and y written once; operations: the
+    # temporally collapsed form the kernel computes (243 static FMAs per
+    # pixel, 81 dynamic FMAs and up to 3 adds per output pixel and frame),
+    # the fewest of any formulation (the direct 27x4x3-tap form does 3.3x)
+    nbytes = 4 * b * hw * (3 + f + 3 * f) + 4 * 327
+    flops = b * hw * (2 * 243 + f * (2 * 81 + 3))
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+    row = {"name": "hal_fused", "route": "cuda", "source": FUSED_SOURCE,
+           "replaces": REPLACES["hal_fused"], "launches": None,
+           "max_abs_err": err,
+           "ms": cuda_ms(lambda: hf.hal_fused(st, dy, wt, bs), 20),
+           "plain_ms": cuda_ms(lambda: hf.hal_fused_plain(st, dy, wt, bs), 5),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": cuda_ms(lambda: torch.nn.functional.conv3d(
+               x4, wt, bs, padding=1), 5)}
+    # hal_fwd computes the same function in fp32 too (with autograd's
+    # saved-tensor contract); its time on these inputs, beside hal_fused's
+    hal_fwd_ms = cuda_ms(lambda: hc.hal_fwd(st, dy, wt, bs), 20)
+    emit({"phase": "times", "rows": [row], "hal_fwd_fp32_ms": hal_fwd_ms})
+    return row
+
+
+class RecordingLogger(MetricLogger):
+    def __init__(self):
+        super().__init__(quiet=True)
+        self.records = []
+
+    def log(self, metrics, step=None):
+        self.records.append((step, dict(metrics)))
+
+
+def _synced_seconds(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def phase_pipeline(tmp):
+    """Expert buffer -> S2D-MTT distillation -> multi-static evaluation,
+    through the drivers, at full width."""
+    p = PIPELINE
+    buf_dir = os.path.join(tmp, "pipeline_buffers")
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launches()
+    expert_s, paths = _synced_seconds(lambda: buffer_driver.main([
+        "--dataset", p["dataset"], "--num_experts", "1", "--save_interval",
+        "1", "--train_epochs", str(p["expert_epochs"]), "--buffer_path",
+        buf_dir, "--compute_dtype", "bfloat16", "--device", "cuda"]))
+    traj = TrajectoryBuffer.load(paths[0]).trajectories
+    assert traj.shape[:2] == (1, p["expert_epochs"] + 1), traj.shape
+    moved = [float(np.sum((traj[0, e + 1] - traj[0, e]) ** 2))
+             for e in range(p["expert_epochs"])]
+    assert all(m > 0 for m in moved), f"a snapshot pair did not move: {moved}"
+
+    cfg = get_preset("s2d_MTT_ms")
+    cfg.s2d = True
+    cfg.dataset, cfg.buffer_path = p["dataset"], buf_dir
+    cfg.save_path = os.path.join(tmp, "pipeline_out")
+    cfg.Iteration, cfg.max_start_epoch = p["iterations"], p["expert_epochs"] - 1
+    cfg.startIt, cfg.eval_it = 0, p["eval_it"]
+    cfg.num_eval, cfg.epoch_eval_train = p["num_eval"], p["epoch_eval_train"]
+    cfg.compute_dtype, cfg.device = "bfloat16", "cuda"
+    data = load_data(cfg)
+    logger = RecordingLogger()
+    hf.reset_launches()
+    distill_s, holder = _synced_seconds(lambda: run(cfg, data, logger))
+    launches = hf.LAUNCHES["hal_fused"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # one hal_fused launch per evaluation training step (n_hal=1; all 50
+    # synthetic videos fit one batch of batch_train=256, so one step per
+    # epoch), per net, per evaluation; the PNG grids compose through
+    # hal_conv and add none
+    n_evals = len(range(cfg.startIt, cfg.Iteration + 1, cfg.eval_it))
+    expect = (cfg.epoch_eval_train + 1) * cfg.num_eval * n_evals
+    assert launches == expect, f"hal_fused: {launches} launches, {expect} expected"
+    accs = [(step, m["Accuracy/ConvNet3D"]) for step, m in logger.records
+            if "Accuracy/ConvNet3D" in m]
+    assert [s for s, _ in accs] == [0, 2], accs
+    assert all(np.isfinite(a) and 0.0 <= a <= 1.0 for _, a in accs), accs
+    out_dir = os.path.join(cfg.save_path, f"S2D_multis_MTT_{cfg.dataset}")
+    with np.load(os.path.join(out_dir, "hal_0.npz")) as z:
+        assert sorted(z.files) == ["[0]['bias']", "[0]['kernel']"], z.files
+        assert z["[0]['kernel']"].shape == (3, 3, 3, 4, 3)
+    dyn = np.load(os.path.join(out_dir, "dynamic_0.npy"))
+    assert dyn.shape == (100, 16, 112, 112, 1) and np.isfinite(dyn).all()
+    pngs = sorted(os.listdir(os.path.join(out_dir, "png")))
+    assert {"static_000000.png", "dynamic_000000.png",
+            "videos_000000.png"} <= set(pngs), pngs
+
+    # timings on the distilled state: one evaluation training run (fp32,
+    # B=50) and one test pass, then one expert's epochs
+    meta = data.meta
+    ecfg = EvalConfig(model=cfg.model, epoch_eval_train=cfg.epoch_eval_train,
+                      lr_net=float(holder["syn_lr"]), batch_train=cfg.batch_train,
+                      mode="multi-static")
+    s2d_cfg = S2DConfig(num_classes=meta.num_classes, frames=meta.frames,
+                        im_size=tuple(meta.im_size))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    train_s, (theta, model, _) = _synced_seconds(lambda: train_synset(
+        gen, None, None, meta, ecfg, s2d_cfg, holder["state"]))
+    batches = sample_test_batches(data, ecfg, np.random.default_rng(0), "cuda")
+    test_s, _ = _synced_seconds(lambda: run_test_pass(model, theta, meta, ecfg,
+                                                      batches))
+    n_test_batches = sum(clips.shape[0] for clips, _, _ in batches)
+    step_ms = train_s / (cfg.epoch_eval_train + 1) * 1e3
+    test_batch_ms = test_s / n_test_batches * 1e3
+    # the paper's protocol at this width: its training part, and the test
+    # part per 1000 test videos (the synthetic split has only 100; a real
+    # split's size scales it)
+    emit({"phase": "pipeline", "dataset": p["dataset"],
+          "expert_driver_seconds": expert_s,
+          "distill_run_seconds": distill_s,
+          "accuracy": accs, "snapshot_sq_moves": moved,
+          "hal_fused_launches": launches,
+          "ms_per_eval_train_step": step_ms,
+          "test_pass_seconds": test_s,
+          "test_clips_per_pass": len(data.test) * ecfg.test_repeats,
+          "ms_per_test_batch": test_batch_ms,
+          "max_memory_allocated_gb": peak_gb,
+          "paper_eval_point_train_seconds":
+              PAPER_EVAL["num_eval"] * (PAPER_EVAL["epoch_eval_train"] + 1)
+              * step_ms / 1e3,
+          "paper_eval_point_test_seconds_per_1000_videos":
+              PAPER_EVAL["num_eval"] * ecfg.test_repeats
+              * -(-1000 // TEST_BATCH) * test_batch_ms / 1e3,
+          "paper_eval_point_seconds_synthetic_test_split":
+              PAPER_EVAL["num_eval"] * ((PAPER_EVAL["epoch_eval_train"] + 1)
+                                        * step_ms / 1e3 + test_s)})
+    return launches
+
+
+def phase_expert():
+    """One epoch of expert training in bf16 against fp32 on the same
+    inputs, then the time of a bf16 expert step at the preset's batch."""
+    bcfg = BufferConfig(dataset=EXPERT["dataset"], train_epochs=1,
+                        batch_train=EXPERT["batch"], frames=16, device="cuda")
+    data = load_data(bcfg)
+    store, meta = data.train, data.meta
+    nb = -(-len(store) // EXPERT["batch"])
+    _, theta0 = flat_param_template(
+        bcfg.model, meta.channel, meta.num_classes, tuple(meta.im_size),
+        meta.frames, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    draws = ExpertDraws(theta0.cpu().numpy(),
+                        [[rng.random(EXPERT["batch"]) < 0.5
+                          for _ in range(nb)]])
+    masks = [[torch.from_numpy(rng.random((EXPERT["batch"], 1, 1, 1, 128))
+                               < 0.5).cuda() for _ in range(nb)]]
+    rounded = ExpertDraws(theta0.bfloat16().float().cpu().numpy(),
+                          draws.flips)
+    moves = {}
+    for name, dt, d in (("fp32", "float32", draws), ("bf16", "bfloat16", draws),
+                        ("fp32_rounded_init", "float32", rounded)):
+        traj, _ = train_expert(
+            None, store, dataclasses.replace(bcfg, compute_dtype=dt),
+            np.random.default_rng(1), "cuda", d, masks)
+        moves[name] = traj[1].astype(np.float64) - traj[0]
+    ref = moves["fp32"]
+    rel = {k: float(np.linalg.norm(moves[k] - ref) / np.linalg.norm(ref))
+           for k in ("bf16", "fp32_rounded_init")}
+    tol = EXPERT_BF16_FACTOR * rel["fp32_rounded_init"]
+    assert rel["bf16"] <= tol, (f"expert: bf16 parameter change off by "
+                                f"{rel['bf16']} (rel norm) from fp32, over "
+                                f"{tol}")
+
+    timed = dataclasses.replace(bcfg, train_epochs=EXPERT["timed_epochs"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    epochs_s, _ = _synced_seconds(lambda: train_expert(
+        gen, store, timed, np.random.default_rng(0), "cuda"))
+    emit({"phase": "expert", "dataset": EXPERT["dataset"],
+          "batch": EXPERT["batch"], "steps_per_epoch": nb,
+          "rel_norm_err_vs_fp32": rel, "tolerance": tol,
+          "ms_per_expert_epoch_bf16": epochs_s / EXPERT["timed_epochs"] * 1e3,
+          "ms_per_expert_step_bf16":
+              epochs_s / (EXPERT["timed_epochs"] * nb) * 1e3, "ok": True})
+
+
 def main():
     use_exact_fp32()
     phase_build()
@@ -354,6 +609,9 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = phase_slice(tmp)
+        rows["hal_fused"] = phase_check_fused()
+        launches["hal_fused"] = phase_pipeline(tmp)
+        phase_expert()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, row in rows.items():

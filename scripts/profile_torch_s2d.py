@@ -1,14 +1,20 @@
-"""Where the device time of one S2D-MTT outer step of the PyTorch port goes.
+"""Where the device time of one S2D-MTT outer step, or of one evaluation
+training step, of the PyTorch port goes.
 
     python3 scripts/profile_torch_s2d.py [--dtype bfloat16] [--trace out.json]
+    python3 scripts/profile_torch_s2d.py --phase eval --steps 5
 
-Runs ``S2DMTTStep`` at the slice's full width (ConvNet3D 64/128/128,
-50 classes, 112x112x16, syn_steps=10, frozen static, learnable syn_lr) on
-one CUDA card: two warm-up outer steps, then ``--steps`` outer steps under
-``torch.profiler``. Prints one JSON line: host wall time per step, the sum
-of device activity per step and its share of the wall time, device time by
-kernel family, the top kernels by device time, and the device time of
-each convolution call site by its input shapes. ``--trace`` also writes
+``--phase distill`` (the default) runs ``S2DMTTStep`` at the slice's full
+width (ConvNet3D 64/128/128, 50 classes, 112x112x16, syn_steps=10, frozen
+static, learnable syn_lr) on one CUDA card: two warm-up outer steps, then
+``--steps`` outer steps under ``torch.profiler``. ``--phase eval`` runs the
+multi-static evaluation's training (``distill.evaluate.train_synset``, fp32,
+all 50 synthetic videos in one batch) from a random S2D state at the same
+width: a 2-step warm-up run, then a run of ``--steps`` steps (one per
+epoch) under the profiler. Prints one JSON line: host wall time per step,
+the sum of device activity per step and its share of the wall time, device
+time by kernel family, the top kernels by device time, and the device time
+of each convolution call site by its input shapes. ``--trace`` also writes
 the Chrome trace of the profiled steps.
 """
 
@@ -27,6 +33,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from video_distillation_torch.data.meta import (  # noqa: E402
+    IMAGENET_MEAN, IMAGENET_STD, DatasetMeta)
+from video_distillation_torch.distill.evaluate import (  # noqa: E402
+    EvalConfig, train_synset)
 from video_distillation_torch.distill.mtt import (  # noqa: E402
     S2DHyper, S2DMTTStep, flat_param_template, make_batch_plan)
 from video_distillation_torch.distill.s2d import (  # noqa: E402
@@ -36,7 +46,7 @@ from video_distillation_torch.utils.device import (  # noqa: E402
 
 # first match wins; cuDNN and cuBLAS kernel names vary by version
 FAMILIES = (
-    ("hal_conv kernels", r"^hal_|hal_(fwd|dgrad|wgrad)"),
+    ("hallucinator kernels", r"^hal_|hal_(fwd|dgrad|wgrad|fused)"),
     ("conv / gemm (cuDNN, cuBLAS)",
      r"conv|xmma|implicit|cutlass|gemm|sm90|sm80|dgrad|wgrad|winograd|fft|cudnn"),
     ("pooling", r"pool"),
@@ -80,8 +90,10 @@ def conv_ops(prof, steps):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--phase", default="distill", choices=("distill", "eval"))
     p.add_argument("--dtype", default="bfloat16",
-                   choices=("bfloat16", "float32"))
+                   choices=("bfloat16", "float32"),
+                   help="the distillation's compute dtype (eval is fp32)")
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--trace", default=None)
     args = p.parse_args(argv)
@@ -107,21 +119,33 @@ def main(argv=None):
         out = step(torch.Generator(device=dev).manual_seed(it), *carry, t0,
                    t1, plan)
         carry[:] = out[:4]
-        return out[4]
+        return float(out[4])
 
-    for it in range(2):
-        float(one(it))
+    meta = DatasetMeta(name="profile", channel=3, im_size=im, num_classes=nc,
+                       mean=IMAGENET_MEAN, std=IMAGENET_STD, frames=f)
+
+    def evaluation(steps):
+        ecfg = EvalConfig(epoch_eval_train=steps - 1, mode="multi-static")
+        theta, _, _ = train_synset(gen, None, None, meta, ecfg, cfg, state)
+        return float(theta.norm())
+
+    if args.phase == "distill":
+        work = lambda: [one(2 + it) for it in range(args.steps)][-1]  # noqa: E731
+        for it in range(2):
+            one(it)
+    else:
+        work = lambda: evaluation(args.steps)  # noqa: E731
+        evaluation(2)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t_start = time.perf_counter()
-        for it in range(args.steps):
-            loss = one(2 + it)
+        value = work()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t_start) / args.steps
-    if not np.isfinite(float(loss)):
-        raise AssertionError(f"non-finite grand loss {float(loss)}")
+    if not np.isfinite(value):
+        raise AssertionError(f"non-finite result {value}")
 
     kernels = {}
     for evt in prof.key_averages():
@@ -142,7 +166,9 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({
-        "card": smi, "compute_dtype": args.dtype, "profiled_steps": args.steps,
+        "card": smi, "phase": args.phase,
+        "compute_dtype": args.dtype if args.phase == "distill" else "float32",
+        "profiled_steps": args.steps,
         "wall_ms_per_step": wall * 1e3, "device_ms_per_step": busy,
         "device_busy_share": busy / (wall * 1e3),
         "family_ms_per_step": dict(sorted(fams.items(), key=lambda kv: -kv[1])),

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from video_distillation_torch.ops import hal_conv as hc
+from video_distillation_torch.ops import hal_fused as hf
 
 pytestmark = pytest.mark.cuda
 
@@ -111,6 +112,32 @@ def test_autograd_through_the_kernels(cuda, train_static):
             assert a is None
         else:
             _close_fp32(a, r)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_kernel_matches_plain(cuda, shape):
+    """hal_fused (fp32, no grad) against its plain version and hal_fwd's;
+    one launch counted in its own counter, none in hal_conv's."""
+    s, d, w, b, _ = _inputs(shape, torch.float32, seed=3)
+    hc.reset_launches()
+    hf.reset_launches()
+    y = hf.hal_fused(s, d, w, b)
+    assert hf.LAUNCHES == {"hal_fused": 1}
+    assert set(hc.LAUNCHES.values()) == {0}
+    assert y.dtype == torch.float32 and tuple(y.shape) == (*shape, 3)
+    _close_fp32(y, hf.hal_fused_plain(s, d, w, b))
+    _close_fp32(y, hc.hal_fwd(s, d, w, b).permute(0, 2, 3, 4, 1))
+    assert y.permute(0, 4, 1, 2, 3).is_contiguous()
+
+
+def test_fused_wrapper_raises_on_what_it_does_not_take(cuda):
+    s, d, w, b, _ = _inputs((1, 2, 8, 8), torch.float32)
+    with pytest.raises(TypeError, match="fp32"):
+        hf.hal_fused(s.bfloat16(), d.bfloat16(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        hf.hal_fused(s.transpose(1, 2).contiguous().transpose(1, 2), d, w, b)
+    with pytest.raises(ValueError, match="one CUDA device or all be on"):
+        hf.hal_fused(s, d.cpu(), w, b)
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):

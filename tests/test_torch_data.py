@@ -14,12 +14,14 @@ from video_distillation_tpu.data import store as jstore
 from video_distillation_tpu.data.synthetic import \
     make_synthetic_video_data as jax_synthetic
 from video_distillation_tpu.utils import checkpoint as jckpt
+from video_distillation_tpu.utils import visualize as jvis
 from video_distillation_torch import config as tconfig
 from video_distillation_torch.data import meta as tmeta
 from video_distillation_torch.data.store import load_packed
 from video_distillation_torch.data.synthetic import \
     make_synthetic_video_data as torch_synthetic
 from video_distillation_torch.utils import checkpoint as tckpt
+from video_distillation_torch.utils import visualize as tvis
 
 PRESETS = sorted(jconfig._PRESETS)
 
@@ -30,6 +32,10 @@ def test_presets_match_jax(name):
     t = dataclasses.asdict(tconfig.get_preset(name))
     # the port's only extra field picks the device, CUDA unless asked
     assert t.pop("device", "cuda") == "cuda"
+    # batched num_eval evaluation is not ported (ROADMAP A.7b): off
+    if "vmap_eval" in t:
+        assert t["vmap_eval"] is False
+        t["vmap_eval"] = j["vmap_eval"]
     assert t == j
 
 
@@ -81,3 +87,47 @@ def test_artifacts_are_the_jax_files(tmp_path):
             assert np.array_equal(j[k], t[k])
     assert np.array_equal(np.load(tmp_path / "j" / "dynamic_0.npy"),
                           np.load(tmp_path / "t" / "dynamic_0.npy"))
+
+
+def _read_png(path):
+    """Decode an 8-bit RGB PNG whose scanlines use filter type 0."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
+        assert zlib.crc32(tag + body) & 0xFFFFFFFF == crc
+        if tag == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+            assert body[8:] == bytes([8, 2, 0, 0, 0])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    assert not rows[:, 0].any()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def test_png_grids_match_jax_and_decode(tmp_path):
+    rng = np.random.default_rng(0)
+    static = rng.normal(size=(4, 10, 12, 3)).astype(np.float32)
+    dynamic = rng.normal(size=(2, 2, 6, 10, 12, 1)).astype(np.float32)
+    mean, std = tmeta.IMAGENET_MEAN, tmeta.IMAGENET_STD
+    paths = tvis.save_s2d_grids(str(tmp_path), 7, static=static,
+                                dynamic=dynamic, videos=dynamic[0].repeat(3, -1),
+                                mean=mean, std=std)
+    assert [p.split("/")[-1] for p in paths] == [
+        "static_000007.png", "dynamic_000007.png", "videos_000007.png"]
+    want = jvis._to_grid(jvis.scale_for_vis(static, mean, std), 10)
+    np.testing.assert_array_equal(tvis._to_grid(tvis.scale_for_vis(
+        static, mean, std), 10), want)
+    np.testing.assert_array_equal(_read_png(paths[0]), want)
+    dyn = dynamic.reshape((-1,) + dynamic.shape[-4:])
+    flat = dyn[:, ::1][:, :8].reshape((-1,) + dyn.shape[2:])
+    np.testing.assert_array_equal(
+        _read_png(paths[1]), jvis._to_grid(jvis.scale_for_vis(flat), 6))

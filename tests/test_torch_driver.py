@@ -5,12 +5,15 @@ It reads an expert buffer written by the JAX package's
 ``flat_param_template``, so the ``.npz`` format and the flat order are
 shared. The checkpoint round trip brings back ``mom_lr`` and the numpy RNG
 state, and the paths that are not ported yet raise naming their ROADMAP
-item.
+item. A run that reaches evaluation iterations trains fresh nets at the
+learned ``syn_lr``, logs finite accuracies and writes artifacts that the
+JAX package reads (``hal_{it}.npz`` in its keys and layout).
 """
 
 import math
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -119,18 +122,105 @@ def test_run_resumes_from_its_checkpoint(jax_buffer_dir, tmp_path):
     assert float(out[3]) == pytest.approx(0.9 * 5.0 + float(out[7]["syn_lr"]))
 
 
-@pytest.mark.parametrize("field,value,error,match", [
-    ("method", "DM", NotImplementedError, "A.9"),
-    ("startIt", 0, NotImplementedError, "A.7"),
-    ("device", "cuda", RuntimeError, "CUDA is not available"),
+@pytest.mark.parametrize("fields,error,match", [
+    ({"method": "DM"}, NotImplementedError, "A.9"),
+    ({"startIt": 0, "vmap_eval": True}, NotImplementedError, "A.7b"),
+    ({"device": "cuda"}, RuntimeError, "CUDA is not available"),
 ])
-def test_unported_paths_raise(jax_buffer_dir, tmp_path, field, value, error,
-                              match):
-    if field == "device" and torch.cuda.is_available():
+def test_unported_paths_raise(jax_buffer_dir, tmp_path, fields, error, match):
+    if "device" in fields and torch.cuda.is_available():
         pytest.skip("the CUDA-missing error needs a host without CUDA")
-    cfg = _cfg(jax_buffer_dir, tmp_path, **{field: value})
+    cfg = _cfg(jax_buffer_dir, tmp_path, **fields)
     with pytest.raises(error, match=match):
         run(cfg, load_data(cfg), MetricLogger(quiet=True))
+
+
+class RecordingLogger(MetricLogger):
+    def __init__(self):
+        super().__init__(quiet=True)
+        self.records = []
+
+    def log(self, metrics, step=None):
+        self.records.append((step, dict(metrics)))
+
+
+@pytest.fixture(scope="module")
+def evaluated_run(jax_buffer_dir, tmp_path_factory):
+    """Two outer steps with an evaluation at iterations 0 and 1 (1 fresh
+    net of 2 epochs each), then the run's outputs."""
+    out = tmp_path_factory.mktemp("evaluated")
+    cfg = _cfg(jax_buffer_dir, out, startIt=0, eval_it=1, num_eval=1,
+               epoch_eval_train=1)
+    logger = RecordingLogger()
+    holder = run(cfg, load_data(cfg), logger)
+    return cfg, holder, logger.records, os.path.join(
+        str(out), f"S2D_multis_MTT_{cfg.dataset}")
+
+
+def test_evaluation_logs_accuracies_and_writes_artifacts(evaluated_run):
+    cfg, _, records, out_dir = evaluated_run
+    accs = [(step, m) for step, m in records if "Accuracy/ConvNet3D" in m]
+    assert [step for step, _ in accs] == [0, 1]
+    for _, m in accs:
+        for k in ("Accuracy", "Max_Accuracy", "Std", "Max_Std"):
+            v = m[f"{k}/ConvNet3D"]
+            assert math.isfinite(v) and 0.0 <= v <= 1.0, (k, v)
+    # iteration 0 always saves (it % 1000 == 0); a first accuracy above 0 is
+    # also a new best
+    files = set(os.listdir(out_dir))
+    assert {"dynamic_0.npy", "hal_0.npz"} <= files
+    assert "images_0.npy" not in files  # the static memory is frozen
+    assert np.load(os.path.join(out_dir, "dynamic_0.npy")).shape == \
+        (NC * 2, F, IM, IM, 1)
+    pngs = set(os.listdir(os.path.join(out_dir, "png")))
+    assert {"static_000000.png", "dynamic_000000.png",
+            "videos_000000.png"} <= pngs
+
+
+def test_evaluation_trains_at_the_learned_syn_lr(jax_buffer_dir, tmp_path,
+                                                 monkeypatch):
+    """ROADMAP C.3: the evaluation nets train at the current learned syn_lr,
+    not at lr_net."""
+    from video_distillation_torch.drivers import common
+    seen = []
+    real = common.evaluate_many
+
+    def spy(generator, num_eval, syn_images, syn_labels, data, cfg, *a, **kw):
+        seen.append(cfg.lr_net)
+        return real(generator, num_eval, syn_images, syn_labels, data, cfg,
+                    *a, **kw)
+
+    monkeypatch.setattr(common, "evaluate_many", spy)
+    cfg = _cfg(jax_buffer_dir, tmp_path, startIt=1, eval_it=1, num_eval=1,
+               epoch_eval_train=0, lr_net=0.5)
+    holder, steps = _run(cfg)
+    assert len(seen) == 1 and seen[0] != 0.5
+    assert seen[0] == pytest.approx(float(steps[0][1][1]))
+
+
+def test_hal_artifact_recomposes_in_jax(evaluated_run):
+    """hal_{it}.npz holds the JAX package's keys and layout: its loader
+    restores the hallucinator of iteration 0 (the seeded init, before any
+    step), and JAX composes the same videos from it as the port does."""
+    from video_distillation_tpu.distill import s2d as js2d
+    from video_distillation_tpu.utils.checkpoint import load_pytree_artifact
+    from video_distillation_torch.distill.s2d import hallucinate
+
+    cfg, _, _, out_dir = evaluated_run
+    path = os.path.join(out_dir, "hal_0.npz")
+    with np.load(path) as z:
+        assert sorted(z.files) == ["[0]['bias']", "[0]['kernel']"]
+    template = [{"kernel": np.zeros((3, 3, 3, 4, 3), np.float32),
+                 "bias": np.zeros(3, np.float32)}]
+    hals = load_pytree_artifact(path, template)
+    st0 = build_s2d(cfg, load_data(cfg).meta, "cpu")[1]
+    static = st0["static"][:2]
+    dynamic = torch.from_numpy(np.load(os.path.join(out_dir, "dynamic_0.npy"))[:2])
+    ref = js2d.hallucinate(hals[0], jnp.asarray(static.numpy()),
+                           jnp.asarray(dynamic.numpy()))
+    got = hallucinate(st0["hals"][0], static, dynamic)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=5e-4,
+                               atol=5e-4)
 
 
 def test_cli_device_flag_defaults_to_cuda():

@@ -9,7 +9,9 @@ Pallas kernel on a ported path is a hand-written Hopper kernel under
 ``csrc/`` with a plain PyTorch version beside it, which only CPU tensors
 take.
 
-Ported so far: the S2D-MTT distillation slice
+Ported so far: the paper's S2D-MTT pipeline, expert buffers
+(``python -m video_distillation_torch.drivers.buffer``), distillation and
+the multi-static evaluation
 (``python -m video_distillation_torch.drivers.distill_s2d``).
 """
 

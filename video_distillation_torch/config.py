@@ -1,7 +1,8 @@
 """Typed experiment configuration + named presets.
 
 A copy of ``video_distillation_tpu/config.py`` (the port imports nothing of
-the JAX package), plus the ``device`` field the port's drivers read.
+the JAX package), plus the ``device`` field the port's drivers read; the
+port's ``vmap_eval`` defaults to False (ROADMAP A.7b).
 
 Replaces the reference's per-driver argparse + frozen ``sh/`` scripts
 (the reference's ``sh/``, ``distill_baseline.py:366-417``,
@@ -67,9 +68,9 @@ class DistillConfig:
     eval_it: int = 500
     epoch_eval_train: int = 500
     startIt: int = 0
-    # train all num_eval nets in ONE vmapped scan (identical per-net
-    # semantics, ~num_eval x eval throughput on TPU)
-    vmap_eval: bool = True
+    # train all num_eval nets as one batched model; not ported yet
+    # (ROADMAP A.7b), so the port evaluates them one after the other
+    vmap_eval: bool = False
 
     # execution
     device: str = "cuda"                 # 'cpu' only when asked for
@@ -112,6 +113,7 @@ class BufferConfig:
     compute_dtype: str = "bfloat16"
     # row-shard the uint8 clip store over the mesh (K400-scale corpora)
     shard_store: bool = False
+    device: str = "cuda"                 # 'cpu' only when asked for
 
 
 _PRESETS = {

@@ -1,11 +1,11 @@
-"""Packed video stores: the numpy containers and the on-disk format.
+"""Packed video stores: containers, the device side and the on-disk format.
 
-Port of the host-side part of ``video_distillation_tpu/data/store.py``:
-``ClipStore`` (fixed train clips), ``RaggedFrameStore`` (ragged test
-videos with the reference's temporal-crop rules) and ``VideoData``, read
-from the directory that ``video_distillation_tpu/data/packer.py`` writes.
-Uploading the clip store to the device and gathering from it there is not
-ported yet (the DM and buffer slices need it).
+Port of ``video_distillation_tpu/data/store.py``: ``ClipStore`` (fixed
+train clips, uploaded once as uint8 and gathered on the device),
+``RaggedFrameStore`` (ragged test videos with the reference's temporal-crop
+rules) and ``VideoData``, read from the directory that
+``video_distillation_tpu/data/packer.py`` writes. Row-sharding the clip
+store over several devices (``shard_store``) is not ported (ROADMAP A.16).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import os
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from .meta import FRAME_GAP, DatasetMeta
 
@@ -40,9 +41,17 @@ def clip_indices(start: int, skip: int, num_frames: int) -> np.ndarray:
     return np.arange(start, start + num_frames * skip, skip)[:num_frames]
 
 
+def normalize_u8(x: torch.Tensor, mean, std) -> torch.Tensor:
+    """uint8 [0,255] clips (..., C) -> fp32 ``(x - 255·mean) / (255·std)``."""
+    m = torch.tensor(mean, dtype=torch.float32, device=x.device) * 255.0
+    s = torch.tensor(std, dtype=torch.float32, device=x.device) * 255.0
+    return (x.float() - m) / s
+
+
 @dataclasses.dataclass
 class ClipStore:
-    """Fixed-shape clip tensor (the train split)."""
+    """Fixed-shape clip tensor (the train split), uploaded to the device
+    once for gathers there."""
 
     clips: np.ndarray  # (N, F, H, W, C) uint8 (or (N, H, W, C) for images)
     labels: np.ndarray  # (N,) int32
@@ -50,6 +59,8 @@ class ClipStore:
 
     def __post_init__(self):
         self.labels = np.asarray(self.labels, np.int32)
+        self._device_clips = {}
+        self._class_table = None
 
     def __len__(self):
         return self.clips.shape[0]
@@ -61,6 +72,57 @@ class ClipStore:
     @property
     def item_shape(self):
         return self.clips.shape[1:]
+
+    def device_clips(self, device, sharded: bool = False) -> torch.Tensor:
+        """The uint8 clips on ``device`` (cached per device), flattened to
+        (N, prod(item_shape)); consumers reshape gathered rows back."""
+        if sharded:
+            raise NotImplementedError(
+                "shard_store: row-sharding the clip store over several "
+                "devices is not ported yet (ROADMAP A.16)")
+        key = str(torch.device(device))
+        if key not in self._device_clips:
+            flat = np.ascontiguousarray(self.clips).reshape(len(self), -1)
+            self._device_clips[key] = torch.from_numpy(flat).to(device)
+        return self._device_clips[key]
+
+    def gather_clips(self, clips2d: torch.Tensor, idx) -> torch.Tensor:
+        """Gather rows from device_clips() -> (len(idx), *item_shape)."""
+        return clips2d[idx].reshape((-1,) + tuple(self.item_shape))
+
+    def class_table(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(indices (C, max_count) padded with repeats, counts (C,))."""
+        if self._class_table is None:
+            C = self.num_classes
+            groups = [np.nonzero(self.labels == c)[0] for c in range(C)]
+            counts = np.array([len(g) for g in groups], np.int32)
+            mx = max(1, int(counts.max()))
+            table = np.zeros((C, mx), np.int32)
+            for c, g in enumerate(groups):
+                if len(g):
+                    table[c, :len(g)] = g
+                    table[c, len(g):] = g[0]
+            self._class_table = (table, counts)
+        return self._class_table
+
+    def sample_per_class(self, rng: np.random.Generator, n: int) -> np.ndarray:
+        """(C, n) indices — n random distinct clips per class, matching the
+        reference's ``get_images`` permutation draw
+        (distill_baseline.py:84-90)."""
+        table, counts = self.class_table()
+        out = np.empty((self.num_classes, n), np.int64)
+        for c in range(self.num_classes):
+            cnt = int(counts[c])
+            if cnt >= n:
+                sel = rng.permutation(cnt)[:n]
+            else:  # sample with replacement if the class is tiny
+                sel = rng.integers(0, max(1, cnt), size=n)
+            out[c] = table[c, sel]
+        return out
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8 [0,255] -> fp32, ToTensor + Normalize(mean, std)."""
+        return normalize_u8(x, self.meta.mean, self.meta.std)
 
 
 @dataclasses.dataclass

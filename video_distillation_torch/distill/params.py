@@ -105,6 +105,27 @@ class JaxLayout:
         return {k: v.contiguous() for k, v in self.unflatten(t).items()}
 
 
+def to_jax_tree(layout: JaxLayout, params: Mapping[str, torch.Tensor]) -> dict:
+    """The flax tree (nested dicts of fp32 numpy arrays in the JAX layouts)
+    of torch-layout parameters, e.g. a hallucinator's
+    ``{'kernel': (3,3,3,4,3) DHWIO, 'bias': (3,)}``."""
+    tree: dict = {}
+    for path, name, shape in layout.entries:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        leaf = _to_jax_layout(params[name].detach().float().cpu())
+        node[path[-1]] = leaf.contiguous().numpy().reshape(shape)
+    return tree
+
+
+def hal_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
+    """A hallucinator's ``{'weight', 'bias'}`` as the JAX package's
+    ``{'kernel', 'bias'}`` (what its ``hal_{it}.npz`` artifacts hold)."""
+    return to_jax_tree(JaxLayout.for_hallucinator(params["weight"].shape[1]),
+                       params)
+
+
 def from_jax_params(model, tree_or_flat) -> Dict[str, torch.Tensor]:
     """The port's parameters for ``model`` (a ConvNet3D or a Hallucinator)
     from the JAX package's flax tree or flat vector."""

@@ -16,6 +16,10 @@ Slot rules (parity with the reference):
 
 The random draws come from an explicit ``torch.Generator``, or are passed
 in (``draws``) so a test can hand both packages the same ones.
+
+Composition: ``hallucinate`` is differentiable (``ops.hal_conv``, the
+distillation path); ``hallucinate_frozen`` is the evaluation's no-grad fp32
+composition (``ops.hal_fused``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..models.hallucinator import hal_apply, init_hallucinator
+from ..ops.hal_fused import hal_fused
 
 
 @dataclasses.dataclass
@@ -99,33 +104,58 @@ def distill_slots(num_classes: int, spc: int, vpc: int, sample_idx,
     return label, spc * label + 2 * idx + s_bits, 2 * idx + d_bits
 
 
-def eval_slots(num_classes: int, spc: int, dpc: int, n_hal: int,
-               generator: Optional[torch.Generator] = None,
-               draws: Optional[Sequence] = None, device=None):
-    """Evaluation-time slot sampling over the whole synthetic set
-    (utils.py:469-488). ``draws`` = (static, dynamic, hallucinator) draws.
-    Returns (label, static_idx, dynamic_idx, hal_idx), each of length
-    num_classes*vpc with vpc = 5 if spc == 10 else 1."""
+def eval_slot_draw(idx, spc: int, dpc: int, n_hal: int,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Sequence] = None):
+    """MultiStaticSharedDataset slot rules (utils.py:469-488) for a batch of
+    dataset indices in [0, num_classes*vpc), vpc = 5 if spc == 10 else 1
+    (``_eval_slot_draw``, evaluate.py:136-153). ``draws`` = (static,
+    dynamic, hallucinator) draws of idx's shape. Returns (label,
+    static_idx, dynamic_idx, hal_idx)."""
+    idx = torch.as_tensor(idx).long()
+    dev, n = idx.device, idx.shape
     if spc == 10:
-        vpc = 5
+        label, sub = idx // 5, idx % 5
+        static_idx = label * spc + 2 * sub + _bits(draws, 0, 2, n, generator, dev)
+        dynamic_idx = 2 * sub + _bits(draws, 1, 2, n, generator, dev)
     elif spc == 2:
-        vpc = 1
+        label = idx
+        static_idx = label * spc + _bits(draws, 0, spc, n, generator, dev)
+        dynamic_idx = _bits(draws, 1, dpc, n, generator, dev)
     else:
         raise ValueError(
             "MultiStaticSharedDataset supports spc in {2, 10} "
             f"(got {spc}) — utils.py:471-482")
-    n = num_classes * vpc
-    i = torch.arange(n, device=device)
-    if vpc == 5:
-        label, idx = i // 5, i % 5
-        static_idx = label * spc + 2 * idx + _bits(draws, 0, 2, (n,), generator, device)
-        dynamic_idx = 2 * idx + _bits(draws, 1, 2, (n,), generator, device)
-    else:
-        label = i
-        static_idx = label * spc + _bits(draws, 0, spc, (n,), generator, device)
-        dynamic_idx = _bits(draws, 1, dpc, (n,), generator, device)
-    hal_idx = _bits(draws, 2, n_hal, (n,), generator, device)
+    hal_idx = _bits(draws, 2, max(1, n_hal), n, generator, dev)
     return label, static_idx, dynamic_idx, hal_idx
+
+
+def eval_slots(num_classes: int, spc: int, dpc: int, n_hal: int,
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[Sequence] = None, device=None):
+    """Evaluation-time slot sampling over the whole synthetic set: the
+    ``eval_slot_draw`` of every index, each result of length
+    num_classes*vpc."""
+    vpc = 5 if spc == 10 else 1
+    return eval_slot_draw(torch.arange(num_classes * vpc, device=device), spc,
+                          dpc, n_hal, generator, draws)
+
+
+def hallucinate_frozen(hal_params, static, dynamic, mode: str = "concat"):
+    """Compose videos from frozen memories, for evaluation: fp32, no
+    autograd graph. 'concat' goes through ``ops.hal_fused`` (the fused
+    kernel on CUDA). Raises if grad mode is on and an input requires a
+    gradient: a differentiable composition is ``hallucinate``'s."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (static, dynamic, *hal_params.values())):
+        raise RuntimeError(
+            "hallucinate_frozen records no gradient, but an input requires "
+            "one; use hallucinate() for a differentiable composition")
+    if mode == "concat":
+        return hal_fused(static, dynamic, hal_params["weight"],
+                         hal_params["bias"])
+    with torch.no_grad():
+        return hal_apply(hal_params, static, dynamic, mode)
 
 
 def compose_synthetic(state, cfg: S2DConfig, for_eval: bool = True,

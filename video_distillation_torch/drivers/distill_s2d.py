@@ -8,9 +8,14 @@ distilled by matching expert trajectories::
         --preset s2d_MTT_ms --dataset miniUCF101 --buffer_path buffers \\
         [--compute_dtype bfloat16] [--device cuda]
 
-The run is on CUDA unless ``--device cpu`` is given. ``method=DM`` and
-evaluation are not ported yet (ROADMAP A.9 and A.7); a run that reaches
-an evaluation iteration raises.
+The run is on CUDA unless ``--device cpu`` is given. At every evaluation
+iteration (``startIt``, then every ``eval_it``) ``num_eval`` fresh
+ConvNet3Ds are trained on the multi-static synthetic set at the learned
+``syn_lr`` and tested; on a new best (and every 1000 iterations) the
+artifacts ``dynamic_{it}.npy``, ``hal_{it}.npz`` (the JAX package's keys
+and layout), ``images_{it}.npy`` (when the static memory is trained), the
+``*_best`` files and PNG grids are written. ``method=DM`` is not ported
+yet (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -24,18 +29,17 @@ import torch
 from ..config import DistillConfig
 from ..distill.buffer import load_buffers
 from ..distill.mtt import ExpertSampler, S2DHyper, S2DMTTStep, make_batch_plan
-from ..distill.s2d import S2DConfig, init_s2d_momentum, init_s2d_state
-from ..utils.checkpoint import restore_state, save_state
-from ..utils.device import resolve_device, use_exact_fp32
+from ..distill.params import hal_to_jax
+from ..distill.s2d import (S2DConfig, compose_synthetic, init_s2d_momentum,
+                           init_s2d_state)
+from ..utils.checkpoint import (restore_state, save_artifact,
+                                save_pytree_artifact, save_state)
+from ..utils.device import resolve_device, step_generator, use_exact_fp32
 from ..utils.logging import MetricLogger, StepTimer
+from ..utils.visualize import save_s2d_grids
 from .common import EvalTracker, load_data, parse_config_args
 
-
-def step_generator(seed: int, it: int, device) -> torch.Generator:
-    """The generator of outer iteration ``it`` (slot draws and dropout):
-    a function of (seed, it) alone, so a resumed run draws what an
-    uninterrupted one would (the JAX package's ``fold_in(key, it)``)."""
-    return torch.Generator(device=device).manual_seed(seed * 2 ** 32 + it)
+EVAL_STREAM = 10_000_000  # evaluation at iteration it draws from it + this
 
 
 def build_s2d(cfg: DistillConfig, meta, device):
@@ -71,8 +75,9 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
     meta = data.meta
     s2d_cfg, state = build_s2d(cfg, meta, device)
     moms = init_s2d_momentum(state)
-    ckpt_dir = os.path.join(cfg.save_path,
-                            f"S2D_multis_{cfg.method}_{cfg.dataset}", "ckpt")
+    save_dir = os.path.join(cfg.save_path,
+                            f"S2D_multis_{cfg.method}_{cfg.dataset}")
+    ckpt_dir = os.path.join(save_dir, "ckpt")
     holder = {"state": state,
               "syn_lr": torch.tensor(float(cfg.lr_teacher), device=device)}
     mom_lr = torch.zeros((), device=device)
@@ -90,7 +95,29 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
         start_it += 1
         print(f"resumed S2D run at iteration {start_it}")
 
-    tracker = EvalTracker(cfg)
+    def save(it, best):
+        st = holder["state"]
+        dynamic = st["dynamic"].reshape((-1,) + st["dynamic"].shape[2:])
+        # the hallucinator is part of the distilled set: without it the
+        # output dir is not re-evaluable (hal_{it}.pt, distill_s2d_ms.py:
+        # 175-193); written in the JAX package's keys and layout
+        hals = [hal_to_jax(p) for p in st["hals"]]
+        for tag in [str(it)] + (["best"] if best else []):
+            if not cfg.no_train_static:
+                save_artifact(save_dir, f"images_{tag}", st["static"])
+            save_artifact(save_dir, f"dynamic_{tag}", dynamic)
+            save_pytree_artifact(save_dir, f"hal_{tag}", hals)
+        # PNG grids for inspection (reference capability:
+        # FRePo/lib/datadistillation/utils.py:40-118)
+        with torch.no_grad():
+            videos, _ = compose_synthetic(
+                st, s2d_cfg, generator=torch.Generator(device).manual_seed(it))
+        save_s2d_grids(save_dir, it, static=st["static"].cpu().numpy(),
+                       dynamic=st["dynamic"].cpu().numpy(),
+                       videos=videos.cpu().numpy(), mean=meta.mean,
+                       std=meta.std)
+
+    tracker = EvalTracker(cfg, data, logger, save_dir, save)
     timer = StepTimer()
     buffers = load_buffers(cfg.buffer_path)
     sampler = ExpertSampler(buffers, rng)
@@ -112,7 +139,11 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
 
     seg = segment()
     for it in range(start_it, cfg.Iteration + 1):
-        tracker.maybe_eval(it)
+        if tracker.should_eval(it):
+            tracker.maybe_eval(
+                it, step_generator(cfg.seed, EVAL_STREAM + it, device), None,
+                None, float(holder["syn_lr"]), s2d_cfg=s2d_cfg,
+                s2d_state=holder["state"])
         theta0, theta1, start_epoch = seg
         plan = torch.as_tensor(make_batch_plan(rng, n_syn, batch_syn,
                                                cfg.syn_steps), device=device)

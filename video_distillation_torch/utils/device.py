@@ -22,3 +22,10 @@ def use_exact_fp32():
     to TF32, matmuls do not; both are switched off explicitly."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def step_generator(seed: int, it: int, device) -> torch.Generator:
+    """The generator of step ``it`` of a run seeded ``seed``: a function of
+    (seed, it) alone, so a resumed run draws what an uninterrupted one
+    would (the JAX package's ``fold_in(key, it)``)."""
+    return torch.Generator(device=device).manual_seed(seed * 2 ** 32 + it)
