@@ -22,15 +22,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              (ConvNet3D 64/128/128, 50 classes, 112x112x16, syn_steps=10,
              bf16 with an fp32 head) from a fabricated expert buffer:
              1 warm-up + 3 timed outer steps, then one fp32 step. Loss and
-             every outer gradient must be finite, syn_lr >= 0.001, and each
-             kernel launched exactly once per outer step.
-5. check_fused — the fused no-grad hallucinator kernel (``ops.hal_fused``)
+             every outer gradient must be finite, syn_lr >= 0.001, each
+             hallucinator kernel launched exactly once per outer step, and
+             per outer step pack, phase_argmax, phase_select and unpack
+             syn_steps times and phase_scatter 2 x syn_steps times. Then
+             the A/B of the first stage, through ``S2DMTTStep`` alone: 1
+             warm-up + 3 timed bf16 steps with the fused stage and as many
+             with ``fuse_first_stage=False``, steps/s and peak memory each.
+5. check_first_stage — the five first-stage kernels (``ops.s2d2_move``:
+             pack, unpack; ``ops.phase_trio``: argmax, select, scatter)
+             against their plain versions: fp32 at small shapes and bf16 at
+             the slice's inner-step shape (pack 50x16x112x112x3, the phase
+             trio on the 627,200 x 256 GEMM output, m channel-planar), on
+             random inputs and on inputs rounded so that phases tie. pack,
+             the trio and the winner index must equal the plain versions bit
+             for bit; unpack must equal the fp32 plain version in fp32 and be
+             within one bf16 ulp of it in bf16. Each is timed there beside
+             its plain version and, where one PyTorch call computes the same
+             function, that call (``max`` over the phase axis, ``gather``,
+             ``scatter_`` into zeros).
+6. check_fused — the fused no-grad hallucinator kernel (``ops.hal_fused``)
              against its plain version and against ``hal_fwd``, fp32, at
              B=4, F=8, 32x32 and at the evaluation shape B=50, F=16,
              112x112 (max error <= 1e-5 of the largest |value|), and timed
              there beside its plain version, cuDNN's conv3d and ``hal_fwd``
              in fp32 on the same inputs.
-6. pipeline — the paper's pipeline at full width (ConvNet3D 64/128/128, 50
+7. pipeline — the paper's pipeline at full width (ConvNet3D 64/128/128, 50
              classes, 112x112x16, synthetic data): the buffer driver
              (``drivers.buffer``) trains 1 expert for 3 epochs in bf16;
              ``drivers.distill_s2d.run`` (``s2d_MTT_ms``, bf16) takes 3
@@ -39,21 +56,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              the evaluation depth cut to epoch_eval_train=10 (the preset
              has 500). Every adjacent snapshot pair must differ, every
              accuracy be finite and in [0, 1], the artifacts and PNG grids
-             exist, and ``hal_fused`` be launched once per evaluation
-             training step. Then one evaluation training run and one test
+             exist, ``hal_fused`` be launched once per evaluation
+             training step, and the first-stage kernels as often as the
+             expert, distillation, evaluation-training and test-pass steps
+             need them. Then one evaluation training run and one test
              pass are timed on the distilled state.
-7. expert  — one epoch of expert training (``distill.buffer.train_expert``)
+8. expert  — one epoch of expert training (``distill.buffer.train_expert``)
              at full width and the preset's batch of 256 (two steps), in
              bf16 and in fp32 from the same parameters, batches, flips and
              dropout masks. The yardstick is bf16's own rounding: a third,
              fp32 epoch from the initial parameters rounded to bf16. The
              bf16 parameter change must be within 3x as far from the fp32
              one (relative norm) as that rounded epoch's is. Then a bf16
-             step of 256 is timed.
+             step of 256 is timed, and the first-stage kernels counted
+             (one pack, phase_argmax and phase_scatter a step, no unpack).
 
-Then the ``kernels`` line (launch counts: the three ``hal_conv`` kernels
-from the bf16 slice run, ``hal_fused`` from the pipeline run), the card's
-name and power limit, and the ``ok`` line.
+Then the ``kernels`` line (launch counts: the three ``hal_conv`` and the
+five first-stage kernels from the bf16 slice run, ``hal_fused`` from the
+pipeline run), the card's name and power limit, and the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -79,7 +99,8 @@ from video_distillation_torch.distill.buffer import (  # noqa: E402
 from video_distillation_torch.distill.evaluate import (  # noqa: E402
     TEST_BATCH, EvalConfig, run_test_pass, sample_test_batches, train_synset)
 from video_distillation_torch.distill.mtt import (  # noqa: E402
-    S2DHyper, S2DMTTStep, TrajectoryBuffer, flat_param_template)
+    S2DHyper, S2DMTTStep, TrajectoryBuffer, flat_param_template,
+    make_batch_plan)
 from video_distillation_torch.distill.s2d import (  # noqa: E402
     S2DConfig, init_s2d_momentum, init_s2d_state)
 from video_distillation_torch.drivers import buffer as buffer_driver  # noqa: E402
@@ -89,6 +110,8 @@ from video_distillation_torch.models.hallucinator import \
     init_hallucinator  # noqa: E402
 from video_distillation_torch.ops import build, hal_conv as hc  # noqa: E402
 from video_distillation_torch.ops import hal_fused as hf  # noqa: E402
+from video_distillation_torch.ops import phase_trio as pt  # noqa: E402
+from video_distillation_torch.ops import s2d2_move as sm  # noqa: E402
 from video_distillation_torch.utils.device import use_exact_fp32  # noqa: E402
 from video_distillation_torch.utils.logging import MetricLogger  # noqa: E402
 
@@ -98,7 +121,18 @@ REPLACES = {"hal_fwd": "video_distillation_tpu/ops/pallas/hal_vjp.py:79",
             "hal_dgrad": "video_distillation_tpu/ops/pallas/hal_vjp.py:130",
             "hal_wgrad": "video_distillation_tpu/ops/pallas/hal_vjp.py:185",
             "hal_fused":
-                "video_distillation_tpu/ops/pallas/hallucinator_kernel.py:33"}
+                "video_distillation_tpu/ops/pallas/hallucinator_kernel.py:33",
+            "phase_argmax": "video_distillation_tpu/ops/pallas/phase_trio.py:48",
+            "phase_select": "video_distillation_tpu/ops/pallas/phase_trio.py:71",
+            "phase_scatter": "video_distillation_tpu/ops/pallas/phase_trio.py:80",
+            "s2d2_pack": "video_distillation_tpu/ops/pallas/s2d2_move.py:47",
+            "s2d2_unpack": "video_distillation_tpu/ops/pallas/s2d2_move.py:73"}
+FIRST_STAGE_SOURCES = {
+    "phase_argmax": "video_distillation_torch/csrc/phase_trio.cu",
+    "phase_select": "video_distillation_torch/csrc/phase_trio.cu",
+    "phase_scatter": "video_distillation_torch/csrc/phase_trio.cu",
+    "s2d2_pack": "video_distillation_torch/csrc/s2d2_move.cu",
+    "s2d2_unpack": "video_distillation_torch/csrc/s2d2_move.cu"}
 BF16_ULP = 2.0 ** -7
 SLICE = dict(num_classes=50, frames=16, im=112, syn_steps=10)
 # the evaluation's training batch: all 50 synthetic videos (spc=2, vpc=1)
@@ -173,6 +207,54 @@ def check_bf16(name, out, ref):
         raise AssertionError(f"{name}: bf16 result off by {worst} beyond "
                              "one ulp")
     return max_err(o, r)
+
+
+def check_equal(name, out, ref):
+    """Bit-equal to the plain version (a kernel that copies values)."""
+    if not torch.equal(out, ref):
+        raise AssertionError(f"{name}: differs from the plain version, max "
+                             f"error {max_err(out, ref)}")
+    return 0.0
+
+
+def randn(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+
+def first_stage_launches():
+    return {**pt.LAUNCHES, **sm.LAUNCHES}
+
+
+def reset_first_stage():
+    pt.reset_launches()
+    sm.reset_launches()
+
+
+def per_outer_step(syn_steps):
+    """First-stage launches of one S2D-MTT outer step: each inner forward
+    packs and takes the phase max; each inner backward scatters; the outer
+    backward scatters through every forward, selects through every inner
+    scatter and unpacks every pack's cotangent."""
+    return {"phase_argmax": syn_steps, "phase_select": syn_steps,
+            "phase_scatter": 2 * syn_steps, "s2d2_pack": syn_steps,
+            "s2d2_unpack": syn_steps}
+
+
+def first_order(steps, no_grad_forwards=0):
+    """First-stage launches of ``steps`` first-order training steps (no
+    input gradient, so no unpack) and ``no_grad_forwards`` forwards."""
+    forwards = steps + no_grad_forwards
+    return {"phase_argmax": forwards, "phase_select": 0,
+            "phase_scatter": steps, "s2d2_pack": forwards, "s2d2_unpack": 0}
+
+
+def check_first_stage_counts(where, want):
+    got = first_stage_launches()
+    if got != want:
+        raise AssertionError(f"{where}: first-stage launches {got}, "
+                             f"expected {want}")
+    return got
 
 
 def phase_build():
@@ -364,14 +446,20 @@ def phase_slice(tmp):
             if n != it + 1:
                 raise AssertionError(f"step {it}: {k} launched {n} times "
                                      f"after {it + 1} outer steps")
+        check_first_stage_counts(f"step {it}", {
+            k: n * (it + 1) for k, n in per_step.items()})
 
+    per_step = per_outer_step(SLICE["syn_steps"])
     torch.cuda.reset_peak_memory_stats()
     hc.reset_launches()
+    reset_first_stage()
     run(cfg, data, logger, step_hook=hook)
     launches = dict(hc.LAUNCHES)
     steps = cfg.Iteration + 1
     for k, n in launches.items():
         assert n == steps, f"{k}: {n} launches in {steps} outer steps"
+    launches.update(check_first_stage_counts(
+        "slice", {k: n * steps for k, n in per_step.items()}))
     timed = len(marks) - 1
     emit({"phase": "slice", "compute_dtype": "bfloat16", "outer_steps": steps,
           "steps_per_sec": timed / (marks[-1] - marks[0]),
@@ -385,13 +473,156 @@ def phase_slice(tmp):
     losses.clear()
     torch.cuda.reset_peak_memory_stats()
     hc.reset_launches()
+    reset_first_stage()
     t_start = time.perf_counter()
     run(cfg, data, logger, step_hook=hook)
     emit({"phase": "slice", "compute_dtype": "float32", "outer_steps": 1,
           "seconds_with_setup": marks[0] - t_start, "grand_loss": losses,
           "max_memory_allocated_gb":
               torch.cuda.max_memory_allocated() / 2 ** 30})
+    first_stage_ab(t0, t1)
     return launches
+
+
+def first_stage_ab(t0, t1):
+    """The fused first stage against the plain Conv3d + MaxPool stage:
+    ``S2DMTTStep`` alone, bf16 at the slice's width, 1 warm-up + 3 timed
+    steps each from the same state and plans, fused first."""
+    nc, f, im, syn = (SLICE["num_classes"], SLICE["frames"], SLICE["im"],
+                      SLICE["syn_steps"])
+    cfg = S2DConfig(num_classes=nc, frames=f, im_size=(im, im))
+    state = init_s2d_state(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    res = {}
+    for fused in (True, False):
+        step = S2DMTTStep("ConvNet3D", 3, nc, (im, im), f, syn, cfg,
+                          S2DHyper(100.0, 0.01, 0.01, 1e-5, False, True),
+                          "bfloat16", "cuda")
+        step.core.model.fuse_first_stage = fused
+        rng = np.random.default_rng(0)
+        torch.cuda.reset_peak_memory_stats()
+        marks, losses = [], []
+        for it in range(4):
+            plan = torch.as_tensor(make_batch_plan(rng, nc, nc, syn),
+                                   device="cuda")
+            out = step(torch.Generator(device="cuda").manual_seed(it), state,
+                       torch.tensor(0.01, device="cuda"),
+                       init_s2d_momentum(state), torch.zeros((), device="cuda"),
+                       t0, t1, plan)
+            losses.append(float(out[4]))
+            marks.append(time.perf_counter())
+            bad = [k for k, v in out[7].items() if k != "hals" and not _finite(v)]
+            if bad or not np.isfinite(losses[-1]):
+                raise AssertionError(f"A/B fused={fused}: non-finite {bad}")
+        res["fused" if fused else "plain"] = {
+            "steps_per_sec": 3 / (marks[-1] - marks[0]),
+            "step_seconds": np.diff(marks).tolist(), "grand_loss": losses,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit({"phase": "slice_first_stage_ab", "compute_dtype": "bfloat16",
+          **res, "fused_over_plain_steps_per_sec":
+              res["fused"]["steps_per_sec"] / res["plain"]["steps_per_sec"]})
+
+
+def _movers(shape, dtype, seed):
+    """pack and unpack against their plain versions; returns (unpack's max
+    error, x, g)."""
+    b, f, h, w, c = shape
+    x = randn(shape, dtype, seed)
+    check_equal(f"pack {dtype} {shape}", sm.pack(x), sm.pack_plain(x))
+    g = randn((b, f, h // 2 + 4, w // 2 + 4, 12 * c), dtype, seed + 1)
+    out, ref = sm.unpack_sum(g, h, w), sm.unpack_plain(g.float(), h, w)
+    if dtype == torch.float32:
+        err = check_equal(f"unpack fp32 {shape}", out, ref)
+    else:
+        err = check_bf16(f"unpack bf16 {shape}", out, ref)
+    return err, x, g
+
+
+def _trio(n, o, rows, dtype, seed, ties):
+    """The phase trio against its plain versions, m and c channel-planar
+    with ``rows`` rows a batch; ``ties`` rounds y so that phases tie.
+    Returns (share of outputs whose max ties, y, t, c, idx)."""
+    y = randn((n, 4 * o), dtype, seed)
+    if ties:
+        y = (y * 2).round().to(dtype)
+    t = randn((n, 4 * o), dtype, seed + 1)
+    c = randn((n // rows, o, rows), dtype, seed + 2)
+    m, idx = pt.phase_argmax(y, rows)
+    rm, ridx = pt.phase_argmax_plain(y, rows)
+    name = f"{dtype} N={n} ties={ties}"
+    check_equal(f"phase_argmax m {name}", m, rm)
+    check_equal(f"phase_argmax idx {name}", idx, ridx)
+    check_equal(f"phase_select {name}", pt.phase_select(t, idx, rows),
+                pt.phase_select_plain(t, idx, rows))
+    check_equal(f"phase_scatter {name}", pt.phase_scatter(c, idx, rows),
+                pt.phase_scatter_plain(c, idx, rows))
+    m_rows = m.transpose(1, 2).reshape(n, 1, o)
+    tied = float(((y.view(n, 4, o) == m_rows).sum(1) > 1).float().mean())
+    return tied, y, t, c, idx
+
+
+def phase_check_first_stage():
+    """The five first-stage kernels against their plain versions (fp32
+    small, bf16 at the slice's inner-step shape, random and tied inputs),
+    then timed at the slice's shape."""
+    for shape in ((2, 4, 16, 16, 3), (1, 1, 12, 8, 3), (3, 2, 16, 20, 2)):
+        _movers(shape, torch.float32, 10)
+    for n, o, rows in ((100, 64, 25), (77, 8, 7), (64, 40, 64)):
+        for ties in (False, True):
+            _trio(n, o, rows, torch.float32, 11, ties)
+    emit({"phase": "check_first_stage_fp32", "ok": True})
+
+    b, f, im = SLICE["num_classes"], SLICE["frames"], SLICE["im"]
+    ho = im // 4
+    n, o, rows = b * f * ho * ho, 64, f * ho * ho
+    unpack_err, x, g = _movers((b, f, im, im, 3), torch.bfloat16, 12)
+    tied = {}
+    for ties in (True, False):  # the untied inputs are the ones timed
+        tied[ties], y, t, c, idx = _trio(n, o, rows, torch.bfloat16, 13, ties)
+    emit({"phase": "check_first_stage_bf16", "pack_shape": tuple(x.shape),
+          "trio_rows": n, "tied_share": tied, "unpack_max_abs_err": unpack_err,
+          "ok": True})
+
+    idx64 = idx.long().unsqueeze(1)
+    c_rows = c.transpose(1, 2).reshape(n, 1, o)
+    e, xv = 2, b * f * (im // 2 + 4) ** 2 * 36  # bf16; packed elements
+    # (kernel, plain, library call or None, bytes moved, fp32 operations)
+    ms = {
+        "s2d2_pack": (lambda: sm.pack(x), lambda: sm.pack_plain(x), None,
+                      e * (x.numel() + xv), 0),
+        "s2d2_unpack": (lambda: sm.unpack_sum(g, im, im),
+                        lambda: sm.unpack_plain(g, im, im), None,
+                        e * (xv + x.numel()), 2 * x.numel()),
+        "phase_argmax": (lambda: pt.phase_argmax(y, rows),
+                         lambda: pt.phase_argmax_plain(y, rows),
+                         lambda: y.view(n, 4, o).max(1),
+                         e * 5 * n * o + n * o, 3 * n * o),
+        "phase_select": (lambda: pt.phase_select(t, idx, rows),
+                         lambda: pt.phase_select_plain(t, idx, rows),
+                         lambda: torch.gather(t.view(n, 4, o), 1, idx64),
+                         e * 5 * n * o + n * o, 0),
+        "phase_scatter": (lambda: pt.phase_scatter(c, idx, rows),
+                          lambda: pt.phase_scatter_plain(c, idx, rows),
+                          lambda: torch.zeros(n, 4, o, device="cuda",
+                                              dtype=c.dtype).scatter_(
+                              1, idx64, c_rows),
+                          e * 5 * n * o + n * o, 0),
+    }
+    bw, peak = card_peaks(torch.cuda.get_device_name(0))
+    out = {}
+    for name, (kern, plain, lib, nbytes, flops) in ms.items():
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        out[name] = {
+            "name": name, "route": "cuda", "source": FIRST_STAGE_SOURCES[name],
+            "replaces": REPLACES[name], "launches": None,
+            "max_abs_err": unpack_err if name == "s2d2_unpack" else 0.0,
+            "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None if lib is None else cuda_ms(lib, 5)}
+    emit({"phase": "times", "rows": list(out.values())})
+    return out
 
 
 def phase_check_fused():
@@ -467,6 +698,7 @@ def phase_pipeline(tmp):
     buf_dir = os.path.join(tmp, "pipeline_buffers")
     torch.cuda.reset_peak_memory_stats()
     hf.reset_launches()
+    reset_first_stage()
     expert_s, paths = _synced_seconds(lambda: buffer_driver.main([
         "--dataset", p["dataset"], "--num_experts", "1", "--save_interval",
         "1", "--train_epochs", str(p["expert_epochs"]), "--buffer_path",
@@ -486,8 +718,13 @@ def phase_pipeline(tmp):
     cfg.num_eval, cfg.epoch_eval_train = p["num_eval"], p["epoch_eval_train"]
     cfg.compute_dtype, cfg.device = "bfloat16", "cuda"
     data = load_data(cfg)
+    # one expert step an epoch per ceil(train clips / batch_train=256)
+    expert_steps = p["expert_epochs"] * -(-len(data.train)
+                                          // BufferConfig().batch_train)
+    check_first_stage_counts("pipeline experts", first_order(expert_steps))
     logger = RecordingLogger()
     hf.reset_launches()
+    reset_first_stage()
     distill_s, holder = _synced_seconds(lambda: run(cfg, data, logger))
     launches = hf.LAUNCHES["hal_fused"]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -499,6 +736,16 @@ def phase_pipeline(tmp):
     n_evals = len(range(cfg.startIt, cfg.Iteration + 1, cfg.eval_it))
     expect = (cfg.epoch_eval_train + 1) * cfg.num_eval * n_evals
     assert launches == expect, f"hal_fused: {launches} launches, {expect} expected"
+    # the first stage: the outer steps, each evaluation training step, and
+    # every net's test pass (test_repeats passes over ceil(N_test/64)
+    # batches, no grad)
+    outer = cfg.Iteration + 1
+    test_forwards = (n_evals * cfg.num_eval * EvalConfig().test_repeats
+                     * -(-len(data.test) // TEST_BATCH))
+    want = first_order(expect, test_forwards)
+    for k, n in per_outer_step(cfg.syn_steps).items():
+        want[k] += outer * n
+    first_stage = check_first_stage_counts("pipeline distillation", want)
     accs = [(step, m["Accuracy/ConvNet3D"]) for step, m in logger.records
             if "Accuracy/ConvNet3D" in m]
     assert [s for s, _ in accs] == [0, 2], accs
@@ -538,6 +785,7 @@ def phase_pipeline(tmp):
           "distill_run_seconds": distill_s,
           "accuracy": accs, "snapshot_sq_moves": moved,
           "hal_fused_launches": launches,
+          "first_stage_launches": first_stage,
           "ms_per_eval_train_step": step_ms,
           "test_pass_seconds": test_s,
           "test_clips_per_pass": len(data.test) * ecfg.test_repeats,
@@ -591,14 +839,18 @@ def phase_expert():
 
     timed = dataclasses.replace(bcfg, train_epochs=EXPERT["timed_epochs"])
     gen = torch.Generator(device="cuda").manual_seed(0)
+    reset_first_stage()
     epochs_s, _ = _synced_seconds(lambda: train_expert(
         gen, store, timed, np.random.default_rng(0), "cuda"))
+    first_stage = check_first_stage_counts(
+        "expert", first_order(EXPERT["timed_epochs"] * nb))
     emit({"phase": "expert", "dataset": EXPERT["dataset"],
           "batch": EXPERT["batch"], "steps_per_epoch": nb,
           "rel_norm_err_vs_fp32": rel, "tolerance": tol,
           "ms_per_expert_epoch_bf16": epochs_s / EXPERT["timed_epochs"] * 1e3,
           "ms_per_expert_step_bf16":
-              epochs_s / (EXPERT["timed_epochs"] * nb) * 1e3, "ok": True})
+              epochs_s / (EXPERT["timed_epochs"] * nb) * 1e3,
+          "first_stage_launches": first_stage, "ok": True})
 
 
 def main():
@@ -609,6 +861,7 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = phase_slice(tmp)
+        rows.update(phase_check_first_stage())
         rows["hal_fused"] = phase_check_fused()
         launches["hal_fused"] = phase_pipeline(tmp)
         phase_expert()

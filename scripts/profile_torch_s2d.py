@@ -13,9 +13,12 @@ all 50 synthetic videos in one batch) from a random S2D state at the same
 width: a 2-step warm-up run, then a run of ``--steps`` steps (one per
 epoch) under the profiler. Prints one JSON line: host wall time per step,
 the sum of device activity per step and its share of the wall time, device
-time by kernel family, the top kernels by device time, and the device time
-of each convolution call site by its input shapes. ``--trace`` also writes
-the Chrome trace of the profiled steps.
+time by kernel family, the top kernels by device time, the device time
+of each convolution call site by its input shapes, the fused first stage's
+share (its five kernels plus its 2-D convolutions), and the cuDNN kernels
+of the first stage's GEMM (forward, dgrad, wgrad) profiled alone at the
+step's shape. ``--trace`` also writes the Chrome trace of the profiled
+steps.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from video_distillation_torch.utils.device import (  # noqa: E402
 # first match wins; cuDNN and cuBLAS kernel names vary by version
 FAMILIES = (
     ("hallucinator kernels", r"^hal_|hal_(fwd|dgrad|wgrad|fused)"),
+    ("first-stage kernels", r"phase_(argmax|select|scatter)|s2d2_(un)?pack"),
     ("conv / gemm (cuDNN, cuBLAS)",
      r"conv|xmma|implicit|cutlass|gemm|sm90|sm80|dgrad|wgrad|winograd|fft|cudnn"),
     ("pooling", r"pool"),
@@ -74,7 +78,8 @@ def device_us(evt, self_only=True) -> float:
 
 def conv_ops(prof, steps):
     """Device time of each convolution call site, by op and input shapes:
-    which layer and which pass the convolution kernels serve."""
+    which layer and which pass the convolution kernels serve. ConvNet3D's
+    only 2-D convolutions (input rank 4) are its fused first stage's."""
     rows = []
     for evt in prof.key_averages(group_by_input_shape=True):
         if evt.device_type != torch.autograd.DeviceType.CPU or evt.key not in (
@@ -83,9 +88,51 @@ def conv_ops(prof, steps):
         us = device_us(evt, self_only=False)
         if us > 0:
             rows.append({"op": evt.key, "input_shapes": str(evt.input_shapes)[:160],
+                         "input_rank": len(evt.input_shapes[0])
+                         if evt.input_shapes else None,
                          "ms_per_step": us / 1e3 / steps,
                          "calls_per_step": evt.count / steps})
-    return sorted(rows, key=lambda r: -r["ms_per_step"])[:16]
+    return sorted(rows, key=lambda r: -r["ms_per_step"])
+
+
+def first_stage_conv_kernels(dtype, batch, frames, im):
+    """The cuDNN kernels of the fused first stage's GEMM (one stride-2 5x5
+    conv over the packed (B*F, 36, H/2+4, W/2+4) channels-last input to
+    256 channels) at the step's shape: device ms and kernels of its
+    forward, its input gradient (dgrad) and its weight gradient (wgrad),
+    each profiled alone."""
+    dev = "cuda"
+    hc = im // 2 + 4
+    x = torch.randn(batch * frames, 36, hc, hc, device=dev, dtype=dtype,
+                    ).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(256, 36, 5, 5, device=dev, dtype=dtype,
+                    ).contiguous(memory_format=torch.channels_last)
+    y = torch.nn.functional.conv2d(x, w, stride=2)
+    gy = torch.randn_like(y)
+    passes = {
+        "forward": lambda: torch.nn.functional.conv2d(x, w, stride=2),
+        "dgrad": lambda: torch.ops.aten.convolution_backward(
+            gy, x, w, None, [2, 2], [0, 0], [1, 1], False, [0, 0], 1,
+            [True, False, False]),
+        "wgrad": lambda: torch.ops.aten.convolution_backward(
+            gy, x, w, None, [2, 2], [0, 0], [1, 1], False, [0, 0], 1,
+            [False, True, False]),
+    }
+    out = {}
+    for name, fn in passes.items():
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        out[name] = [{"name": evt.key[:140], "ms_per_call": device_us(evt) / 3e3}
+                     for evt in prof.key_averages()
+                     if evt.device_type == torch.autograd.DeviceType.CUDA
+                     and device_us(evt) > 0]
+    return {"input": list(x.shape), "weight": list(w.shape),
+            "output": list(y.shape), "dtype": str(dtype), "passes": out}
 
 
 def main(argv=None):
@@ -162,6 +209,9 @@ def main(argv=None):
     for name, (ms, _) in kernels.items():
         fams[family(name)] = fams.get(family(name), 0.0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
+    convs = conv_ops(prof, args.steps)
+    first_kernels = fams.get("first-stage kernels", 0.0)
+    first_convs = sum(r["ms_per_step"] for r in convs if r["input_rank"] == 4)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -174,7 +224,13 @@ def main(argv=None):
         "family_ms_per_step": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:120], "ms_per_step": ms,
                          "calls_per_step": c} for n, (ms, c) in top],
-        "conv_call_sites": conv_ops(prof, args.steps),
+        "conv_call_sites": convs[:16],
+        "first_stage_ms_per_step": {
+            "kernels": first_kernels, "convolutions_2d": first_convs,
+            "total": first_kernels + first_convs},
+        "first_stage_gemm": first_stage_conv_kernels(
+            torch.bfloat16 if args.phase == "distill" and args.dtype == "bfloat16"
+            else torch.float32, nc, f, im[0]),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
     }), flush=True)
     if args.trace:

@@ -9,7 +9,11 @@ elsewhere. The file imports no JAX, so it runs on a machine without it;
 Tolerances: fp32 results within 1e-5 of the largest |value| (the same sums
 in other orders); a bf16 result within one bf16 rounding (2^-7 relative)
 of the plain version computed in fp32 from the same bf16 inputs, plus 1e-5
-of the largest |value| for the fp32 summation order.
+of the largest |value| for the fp32 summation order. The first-stage
+kernels copy values: pack, the phase trio and the winner index equal their
+plain versions bit for bit; unpack sums three values in fp32 and rounds
+once, so it equals the plain version in fp32 and is within one bf16
+rounding of it in bf16.
 """
 
 import pytest
@@ -17,6 +21,8 @@ import torch
 
 from video_distillation_torch.ops import hal_conv as hc
 from video_distillation_torch.ops import hal_fused as hf
+from video_distillation_torch.ops import phase_trio as pt
+from video_distillation_torch.ops import s2d2_move as sm
 
 pytestmark = pytest.mark.cuda
 
@@ -150,3 +156,110 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         hc.hal_dgrad(g.transpose(3, 4).contiguous().transpose(3, 4), w)
     with pytest.raises(ValueError, match="one CUDA device or all be on"):
         hc.hal_fwd(s, d.cpu(), w, b)
+
+
+# (B, F, H, W, C): F = 1 and 2, H != W, C = 3 and a generic C, a ragged block
+MOVER_SHAPES = [(2, 4, 8, 8, 3), (1, 1, 12, 8, 3), (3, 2, 16, 20, 2),
+                (2, 5, 36, 28, 3)]
+# (N, O, rows_per_batch): ragged row tiles, batches that split a tile, O not
+# a multiple of 32
+TRIO_SHAPES = [(100, 64, 100), (100, 64, 25), (77, 8, 7), (64, 40, 64)]
+
+
+def _randn(shape, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MOVER_SHAPES)
+def test_s2d2_movers_match_plain(cuda, shape, dtype):
+    b, f, h, w, c = shape
+    x = _randn(shape, dtype, 4)
+    sm.reset_launches()
+    assert torch.equal(sm.pack(x), sm.pack_plain(x))
+    g = _randn((b, f, h // 2 + 4, w // 2 + 4, 12 * c), dtype, 5)
+    out = sm.unpack_sum(g, h, w)
+    assert out.dtype == dtype
+    ref = sm.unpack_plain(g.float(), h, w)
+    if dtype == torch.float32:
+        assert torch.equal(out, ref)
+    else:
+        _close_bf16(out, ref)
+    assert sm.LAUNCHES == {"s2d2_pack": 1, "s2d2_unpack": 1}
+
+
+def _trio_inputs(n, o, g, dtype, seed, ties=False):
+    y = _randn((n, 4 * o), dtype, seed)
+    if ties:  # round so that phases tie often
+        y = (y * 2).round().to(dtype)
+    t = _randn((n, 4 * o), dtype, seed + 1)
+    c = pt.to_planar(_randn((n, o), dtype, seed + 2), g)
+    return y, t, c
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TRIO_SHAPES)
+def test_phase_trio_matches_plain(cuda, shape, dtype, ties):
+    n, o, g = shape
+    y, t, c = _trio_inputs(n, o, g, dtype, 6, ties)
+    pt.reset_launches()
+    m, idx = pt.phase_argmax(y, g)
+    rm, ridx = pt.phase_argmax_plain(y, g)
+    assert torch.equal(m, rm) and torch.equal(idx, ridx)
+    assert torch.equal(pt.phase_select(t, idx, g), pt.phase_select_plain(t, idx, g))
+    assert torch.equal(pt.phase_scatter(c, idx, g),
+                       pt.phase_scatter_plain(c, idx, g))
+    assert pt.LAUNCHES == {"phase_argmax": 1, "phase_select": 1,
+                           "phase_scatter": 1}
+
+
+def test_fused_stage_twice_differentiable_on_the_card(cuda):
+    """One second-order pass through the fused stage, kernels against the
+    plain versions on the CPU (fp32): each kernel launches as on the CPU
+    its plain version is called."""
+    from video_distillation_torch.models.layers import s2d2_conv_pool
+    gen = torch.Generator().manual_seed(7)
+    x0 = torch.randn(2, 4, 16, 16, 3, generator=gen)
+    w0 = torch.randn(8, 3, 3, 7, 7, generator=gen) * 0.1
+    b0 = torch.randn(8, generator=gen)
+
+    def hvp(dev):
+        x = x0.to(dev).requires_grad_(True)
+        w = w0.to(dev).requires_grad_(True)
+        loss = torch.sin(s2d2_conv_pool(x, w, b0.to(dev))).sum()
+        (gw,) = torch.autograd.grad(loss, w, create_graph=True)
+        return torch.autograd.grad((gw ** 2).sum(), (x, w))
+
+    sm.reset_launches()
+    pt.reset_launches()
+    got = hvp("cuda")
+    assert sm.LAUNCHES == {"s2d2_pack": 1, "s2d2_unpack": 1}
+    assert pt.LAUNCHES == {"phase_argmax": 1, "phase_select": 1,
+                           "phase_scatter": 2}
+    for a, r in zip(got, hvp("cpu")):
+        assert float((a.cpu() - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+def test_first_stage_wrappers_raise_instead_of_falling_back(cuda):
+    x = _randn((1, 2, 8, 8, 3), torch.float32, 0)
+    with pytest.raises(TypeError, match="not supported"):
+        sm.pack(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        sm.pack(x.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        sm.unpack_sum(sm.pack(x).transpose(2, 3).contiguous().transpose(2, 3),
+                      8, 8)
+    y = _randn((8, 32), torch.float32, 1)
+    m, idx = pt.phase_argmax(y, 4)
+    with pytest.raises(TypeError, match="not supported"):
+        pt.phase_argmax(y.double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.phase_select(y.t().contiguous().t(), idx, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.phase_scatter(m, idx.t().contiguous().t(), 4)
+    with pytest.raises(ValueError, match="one CUDA device or all be on"):
+        pt.phase_scatter(m, idx.cpu(), 4)
+    with pytest.raises(ValueError, match="uint8"):
+        pt.phase_scatter(m, idx.int(), 4)

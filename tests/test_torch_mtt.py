@@ -7,8 +7,10 @@
   draws are reproduced from the step's key and handed to the port, and
   dropout is held fixed by a flax Dropout that applies the same numpy
   keep-mask the port receives. Grand loss within 1e-5 relative; outer
-  gradients within 1e-4 relative norm (fp32 second-order sums in other
-  orders, and the JAX first stage adds its bias after the pool).
+  gradients within 1e-5 relative norm (fp32 second-order sums in other
+  orders; 2.0e-6 measured on an x86 CPU, with both first stages fused).
+* The first-stage kernels' wrappers run their plain versions here; one
+  outer step calls each as often as its kernel launches on the card.
 """
 
 import dataclasses
@@ -158,11 +160,11 @@ def test_s2d_mtt_step_matches_jax(monkeypatch, fresh_jax_steps):
     assert abs(float(t_loss) / float(j_loss) - 1) <= 1e-5
     assert abs(float(t_pdist) / float(j_pdist) - 1) <= 1e-6
     # momenta start at zero, so after one step they are the gradients
-    assert rel_norm(grads["dynamic"], j_moms["dynamic"]) <= 1e-4
+    assert rel_norm(grads["dynamic"], j_moms["dynamic"]) <= 1e-5
     assert torch.equal(t_moms["dynamic"], grads["dynamic"])
     jhal = from_jax_params(Hallucinator(), j_moms["hals"][0])
     for k in ("weight", "bias"):
-        assert rel_norm(grads["hals"][0][k], jhal[k]) <= 1e-4, k
+        assert rel_norm(grads["hals"][0][k], jhal[k]) <= 1e-5, k
     assert abs(float(t_mom_lr) / float(j_mom_lr) - 1) <= 1e-4
     # updated state: dynamic, hallucinator, syn_lr; the frozen static stays
     assert rel_norm(t_state["dynamic"] - tstate["dynamic"],
@@ -223,3 +225,62 @@ def test_trainable_static_gets_its_gradient_and_update():
     assert torch.equal(out[2]["static"], g)
     torch.testing.assert_close(out[0]["static"], state["static"] - 100.0 * g,
                                rtol=0, atol=0)
+
+
+def _count_first_stage_calls(monkeypatch):
+    """Count the calls of each first-stage wrapper's plain version (what
+    the wrapper runs on the CPU, once per kernel launch on the card)."""
+    from video_distillation_torch.ops import phase_trio, s2d2_move
+    counts = dict.fromkeys(("pack", "unpack", "phase_argmax", "phase_select",
+                            "phase_scatter"), 0)
+    for mod, key in ((s2d2_move, "pack"), (s2d2_move, "unpack"),
+                     (phase_trio, "phase_argmax"), (phase_trio, "phase_select"),
+                     (phase_trio, "phase_scatter")):
+        fn = getattr(mod, f"{key}_plain")
+
+        def counted(*args, _fn=fn, _key=key):
+            counts[_key] += 1
+            return _fn(*args)
+
+        monkeypatch.setattr(mod, f"{key}_plain", counted)
+    return counts
+
+
+def test_first_stage_calls_per_outer_step(monkeypatch):
+    """One S2D-MTT outer step of syn_steps S: pack and phase_argmax once per
+    inner forward; phase_scatter in each inner backward and again in the
+    outer backward through the forward; phase_select and unpack once per
+    inner step in the outer backward. A first-order step (evaluation,
+    experts) and a no-grad forward (the test pass) run no unpack."""
+    from video_distillation_torch.distill.s2d import init_s2d_state
+    steps = 3
+    counts = _count_first_stage_calls(monkeypatch)
+    cfg = S2DConfig(num_classes=2, frames=8, im_size=(64, 64))
+    gen = torch.Generator().manual_seed(0)
+    state = init_s2d_state(gen, cfg)
+    _, t0 = tmtt.flat_param_template("ConvNet3D", 3, 2, (64, 64), 8, gen)
+    _, t1 = tmtt.flat_param_template("ConvNet3D", 3, 2, (64, 64), 8, gen)
+    step = tmtt.S2DMTTStep(
+        "ConvNet3D", 3, 2, (64, 64), 8, steps, cfg,
+        tmtt.S2DHyper(100.0, 0.01, 0.01, 1e-5, False, True), "float32", "cpu")
+    step(torch.Generator().manual_seed(1), state, torch.tensor(0.01),
+         init_s2d_momentum(state), torch.zeros(()), t0, t1,
+         torch.tensor([[0, 1]] * steps))
+    assert counts == {"pack": steps, "phase_argmax": steps,
+                      "phase_scatter": 2 * steps, "phase_select": steps,
+                      "unpack": steps}
+
+    counts.update(dict.fromkeys(counts, 0))
+    theta = t0.clone().requires_grad_(True)
+    x = torch.randn(2, 8, 64, 64, 3, generator=gen)
+    ce = step.core.ce(theta, x, torch.tensor([0, 1]), torch.ones(2),
+                      generator=gen)
+    torch.autograd.grad(ce, theta)
+    assert counts == {"pack": 1, "phase_argmax": 1, "phase_scatter": 1,
+                      "phase_select": 0, "unpack": 0}
+    counts.update(dict.fromkeys(counts, 0))
+    with torch.no_grad():
+        step.core.ce(theta, x, torch.tensor([0, 1]), torch.ones(2),
+                     generator=gen)
+    assert counts == {"pack": 1, "phase_argmax": 1, "phase_scatter": 0,
+                      "phase_select": 0, "unpack": 0}

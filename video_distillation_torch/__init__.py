@@ -12,7 +12,8 @@ take.
 Ported so far: the paper's S2D-MTT pipeline, expert buffers
 (``python -m video_distillation_torch.drivers.buffer``), distillation and
 the multi-static evaluation
-(``python -m video_distillation_torch.drivers.distill_s2d``).
+(``python -m video_distillation_torch.drivers.distill_s2d``), with all
+nine of the JAX package's Pallas kernels.
 """
 
 __version__ = "0.1.0"

@@ -11,9 +11,17 @@ reference ``networks.py:727-814``):
   Dropout(0.5) in train mode; 1x1x1 conv to the classes; max over time.
 
 The public input layout is the JAX package's ``(B, F, H, W, C)``; inside,
-the net runs NCDHW. The first stage is a plain Conv3d + activation +
-MaxPool. The JAX package fuses it into an s2d2 GEMM + phase max that adds
-the bias after the pool, which is the same math up to rounding.
+the net runs NCDHW. The first stage is fused as the JAX package fuses it
+(``convnet3d.py:85-101``), under the same condition: max-pooling, no norm,
+a monotone activation (pool and activation then commute) and H, W
+divisible by 4. It is ``layers.s2d2_conv_pool``: the s2d2 pack kernel, one
+stride-2 5x5 cuDNN conv over the packed view, the phase-max kernel and
+the bias, added after the pool; then the activation. Every other
+configuration (swish, for one) takes the plain Conv3d + activation +
+MaxPool stage. ``fuse_first_stage=False`` forces the plain stage; it exists
+for A/B measurements, as the JAX package's ``FUSE_FIRST_STAGE``. Both
+stages read the same ``convs[0]`` Conv3d parameters, so the flat parameter
+layout and the expert buffers do not depend on it.
 
 Mixed precision: each stage casts its conv weights to the activation's
 dtype, and ``fp32_stages`` names stages that run in fp32 (the JAX
@@ -38,7 +46,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import activation, avg_pool, check_stages, init_conv_, max_pool, stage_island
+from .layers import (activation, avg_pool, check_stages, init_conv_, max_pool,
+                     s2d2_conv_pool, stage_island)
+
+# pool-before-activation commutes only for monotone activations
+_MONOTONE = ("relu", "leakyrelu", "sigmoid")
 
 
 class ConvNet3D(nn.Module):
@@ -49,7 +61,7 @@ class ConvNet3D(nn.Module):
                  im_size: Tuple[int, int] = (112, 112),
                  dropout_rate: float = 0.5, *,
                  generator: Optional[torch.Generator] = None,
-                 device=None):
+                 device=None, fuse_first_stage: bool = True):
         super().__init__()
         if net_norm != "none":
             raise NotImplementedError(
@@ -60,6 +72,7 @@ class ConvNet3D(nn.Module):
         self.net_act, self.net_pooling = net_act, net_pooling
         self.frames, self.im_size = frames, tuple(im_size)
         self.dropout_rate = dropout_rate
+        self.fuse_first_stage = fuse_first_stage
         self.act = activation(net_act)
         self.convs = nn.ModuleList()
         cin = channel
@@ -77,10 +90,15 @@ class ConvNet3D(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 fp32_stages: Sequence[str] = ()):
         fp32_stages = check_stages(fp32_stages)
-        x = x.permute(0, 4, 1, 2, 3)  # (B, F, H, W, C) -> NCDHW
         base_dt = x.dtype
         for d, conv in enumerate(self.convs):
             x = stage_island(x, f"s{d + 1}", base_dt, fp32_stages)
+            if d == 0 and self.fuses_first_stage(x.shape[2], x.shape[3]):
+                x = self.act(s2d2_conv_pool(x, conv.weight.to(x.dtype),
+                                            conv.bias.to(x.dtype)))
+                continue
+            if d == 0:
+                x = x.permute(0, 4, 1, 2, 3)  # (B, F, H, W, C) -> NCDHW
             x = F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
                          stride=(1, 2, 2), padding=(1, 3, 3))
             x = self.act(x)
@@ -108,6 +126,12 @@ class ConvNet3D(nn.Module):
         if output == "both":
             return logits, feat
         return logits
+
+    def fuses_first_stage(self, h: int, w: int) -> bool:
+        """Whether the first stage runs fused on H x W input
+        (``convnet3d.py:93-97``)."""
+        return (self.fuse_first_stage and self.net_pooling == "maxpooling"
+                and self.net_act in _MONOTONE and h % 4 == 0 and w % 4 == 0)
 
     def _dropout(self, x, keep_mask, generator):
         keep_prob = 1.0 - self.dropout_rate

@@ -1,5 +1,5 @@
-"""Building blocks ConvNet3D needs: init bounds, activations, pools, and the
-fp32 stage island.
+"""Building blocks ConvNet3D needs: init bounds, activations, pools, the
+fp32 stage island, and the fused s2d2 first stage.
 
 Port of the matching parts of ``video_distillation_tpu/models/layers.py``.
 Tensors here are NCDHW (torch's own layout); the models permute at their
@@ -11,9 +11,13 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.phase_trio import phase_max
+from ..ops.s2d2_move import s2d2_pack
 
 
 def torch_default_bound(fan_in: int) -> float:
@@ -74,3 +78,54 @@ def stage_island(x, name: str, base_dtype, fp32_stages: Sequence[str] = ()):
     island holds in every derivative of the forward too."""
     want = torch.float32 if name in fp32_stages else base_dtype
     return x if x.dtype == want else x.to(want)
+
+
+# The fused first stage (``layers.py:573-643``): Conv3d k=(3,7,7) stride
+# (1,2,2) pad (1,3,3) followed by the (1,2,2) max-pool, as ONE stride-2 5x5
+# 2-D conv over the s2d2-packed input whose 4*O output channels are the four
+# pool phases, then the phase max and the bias (per channel, so it commutes
+# with the max; added after it, as the JAX package does).
+#
+# Pool output (i, j) at phase a taps input rows 4i + 2a - 3 + u (u in
+# [0, 7)); with the +4 pad, packed cell c covers rows 2c-4 and 2c-3, so tap u
+# lands in relative cell d = (2a+1+u)//2 (window 5, stride 2), sub-row
+# p = (2a+1+u) % 2. _U2[d, p, a] inverts that: u = 2d + p - 2a - 1, or 7 (a
+# zero slot) where out of range.
+_U2 = np.full((5, 2, 2), 7, np.int64)
+for _d in range(5):
+    for _p in range(2):
+        for _a in range(2):
+            _u = 2 * _d + _p - 2 * _a - 1
+            if 0 <= _u <= 6:
+                _U2[_d, _p, _a] = _u
+
+
+def s2d2_weight(weight):
+    """Conv3d weight (O, C, 3, 7, 7) -> the packed 2-D kernel (4O, 12C, 5, 5):
+    input channels (py, px, dt, c), output channels (ay, ax, o). A gather
+    (``layers.py:608-622``), so it stays differentiable to any order."""
+    o, c = weight.shape[:2]
+    # (O, C, kt, kh, kw) -> the JAX package's w2 (kh, kw, kt*C + c, O),
+    # zero-padded by one tap in kh and kw for the empty slot 7
+    w2 = weight.permute(3, 4, 2, 1, 0).reshape(7, 7, 3 * c, o)
+    w2p = F.pad(w2, (0, 0, 0, 0, 0, 1, 0, 1))
+    u = torch.as_tensor(_U2, device=weight.device)
+    wg = w2p[u[:, :, :, None, None, None], u[None, None, None]]
+    # (dy, py, ay, dx, px, ax, ck, o) -> (ay, ax, o, py, px, ck, dy, dx)
+    return wg.permute(2, 5, 7, 1, 4, 6, 0, 3).reshape(4 * o, 12 * c, 5, 5)
+
+
+def s2d2_conv_pool(x, weight, bias):
+    """Video (B, F, H, W, C), H and W divisible by 4 -> NCDHW
+    (B, O, F, H/4, W/4): conv + (1,2,2) max-pool + bias, without the
+    activation. The packed view goes to cuDNN as a channels-last NCHW
+    tensor, so its (BF, Ho, Wo, 4O) output is already the (rows, 4O) layout
+    the phase max reads; the max writes NCDHW directly."""
+    b, f, h, w, c = x.shape
+    o = weight.shape[0]
+    xv = s2d2_pack(x).view(b * f, h // 2 + 4, w // 2 + 4, 12 * c)
+    ws = s2d2_weight(weight).contiguous(memory_format=torch.channels_last)
+    y = F.conv2d(xv.permute(0, 3, 1, 2), ws, stride=2)
+    ho, wo = y.shape[2:]
+    m = phase_max(y.permute(0, 2, 3, 1).reshape(-1, 4 * o), f * ho * wo)
+    return m.view(b, o, f, ho, wo) + bias.view(1, o, 1, 1, 1)

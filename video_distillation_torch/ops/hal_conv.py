@@ -71,7 +71,7 @@ def _on_cpu(*tensors) -> bool:
     if kinds == {"cpu"}:
         return True
     if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"hal_conv: tensors must share one CUDA device or "
+        raise ValueError(f"kernel inputs must share one CUDA device or "
                          f"all be on the CPU, got {[t.device for t in tensors]}")
     return False
 
