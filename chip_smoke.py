@@ -4,7 +4,8 @@
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
-1. build   — compile every CUDA source of the port with nvcc (in parallel).
+1. build   — compile every CUDA source of the port with nvcc (in parallel);
+             ptxas's registers and spill bytes for each kernel.
 2. check   — each hallucinator kernel against its plain PyTorch version on
              the card: fp32 at a small shape (B=4, F=8, 32x32; max error
              <= 1e-5 of the output's largest |value|) and bf16 at the S2D-MTT
@@ -12,8 +13,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              in fp32 from the same bf16 inputs (every element within one bf16
              ulp, 2^-7 relative, plus 1e-5 of the largest |value| for the
              fp32 summation order); the fp32 weight gradient at 1e-3 of its
-             largest |value|. Times kernel, plain version and the cuDNN
-             convolution that computes the same function.
+             largest |value|, and bit-equal across two calls. Times kernel,
+             plain version and the cuDNN convolution that computes the same
+             function; the bound takes the bf16 products at the tensor
+             cores' rate and reports the FFMA time beside it.
 3. parity  — one fp32 S2D-MTT step at a small shape (3 classes, 64x64x8,
              syn_steps=2) on the card and on the CPU from the same inputs,
              draws and dropout masks: grand loss within 1e-5 relative,
@@ -31,8 +34,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              with ``fuse_first_stage=False``, steps/s and peak memory each.
 5. check_first_stage — the five first-stage kernels (``ops.s2d2_move``:
              pack, unpack; ``ops.phase_trio``: argmax, select, scatter)
-             against their plain versions: fp32 at small shapes and bf16 at
-             the slice's inner-step shape (pack 50x16x112x112x3, the phase
+             against their plain versions: fp32 and bf16 at small shapes
+             (the movers also at an odd packed width and at rows that are
+             not a multiple of 16 bytes) and bf16 at the slice's
+             inner-step shape (pack 50x16x112x112x3, the phase
              trio on the 627,200 x 256 GEMM output, m channel-planar), on
              random inputs and on inputs rounded so that phases tie. pack,
              the trio and the winner index must equal the plain versions bit
@@ -40,7 +45,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              within one bf16 ulp of it in bf16. Each is timed there beside
              its plain version and, where one PyTorch call computes the same
              function, that call (``max`` over the phase axis, ``gather``,
-             ``scatter_`` into zeros).
+             ``scatter_`` into zeros). pack is also checked and timed in
+             fp32 at the evaluation shape (50x16x112x112x3), where it runs
+             once per evaluation training step.
 6. check_fused — the fused no-grad hallucinator kernel (``ops.hal_fused``)
              against its plain version and against ``hal_fwd``, fp32, at
              B=4, F=8, 32x32 and at the evaluation shape B=50, F=16,
@@ -81,6 +88,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -153,13 +161,14 @@ def emit(obj):
 
 
 def card_peaks(name: str):
-    """(bytes/s, fp32 FLOP/s outside the tensor cores) from NVIDIA's data
-    sheets for the H100 part the name gives."""
+    """(bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 FLOP/s on
+    the tensor cores) from NVIDIA's H100 data sheet for the part the name
+    gives (the sheet's bf16 figures are with sparsity: half of each)."""
     if "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 756e12
     if "NVL" in name:
-        return 3.9e12, 60e12
-    return 3.35e12, 67e12  # SXM
+        return 3.9e12, 60e12, 835e12
+    return 3.35e12, 67e12, 989e12  # SXM
 
 
 def cuda_ms(fn, iters, warmup=1):
@@ -217,6 +226,13 @@ def check_equal(name, out, ref):
     return 0.0
 
 
+def check_wgrad_deterministic(name, dk, db, g, st, dy):
+    """A second call on the same inputs gives the same bits."""
+    dk2, db2 = hc.hal_wgrad(g, st, dy)
+    if not (torch.equal(dk, dk2) and torch.equal(db, db2)):
+        raise AssertionError(f"hal_wgrad {name}: two calls differ")
+
+
 def randn(shape, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randn(*shape, generator=g, device="cuda").to(dtype)
@@ -257,13 +273,51 @@ def check_first_stage_counts(where, want):
     return got
 
 
+def kernel_name(mangled):
+    """``hal_wgrad_band_bf16_kernel`` or ``s2d2_pack_kernel<u16,3>`` from
+    an Itanium-mangled name: the length-prefixed part that ends in
+    ``_kernel``, and its leading template arguments."""
+    types = {"I13__nv_bfloat16": "bf16", "If": "float", "It": "u16",
+             "Ij": "u32"}
+    i = 3  # past "_ZN": the nested names, each prefixed by its length
+    while (m := re.match(r"\d+", mangled[i:])):
+        n, i = int(m.group()), i + m.end()
+        name, i = mangled[i:i + n], i + n
+        if not name.endswith("_kernel"):
+            continue
+        tail, args = mangled[i:], []
+        for code, short in types.items():
+            if tail.startswith(code):
+                args.append(short)
+                c = re.match(r"Li(\d+)E", tail[len(code):])
+                if c:
+                    args.append(c.group(1))
+        return f"{name}<{','.join(args)}>" if args else name
+    return mangled
+
+
+def ptxas_table(log):
+    """Per kernel: ptxas's registers and spill bytes (stores + loads)."""
+    rows = []
+    for ln in log:
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            rows.append({"kernel": kernel_name(m.group(1))})
+        elif rows and "registers" in ln:
+            rows[-1]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  ln).group(1))
+        elif rows and "spill" in ln:
+            rows[-1]["spill_bytes"] = sum(
+                map(int, re.findall(r"(\d+) bytes spill", ln)))
+    return rows
+
+
 def phase_build():
     t0 = time.perf_counter()
     secs = build.build_all()
     log = "\n".join(build.build_log(n) for n in build.SOURCES).splitlines()
-    ptxas = [ln.strip() for ln in log if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": secs, "ptxas": ptxas})
+          "nvcc_seconds": secs, "ptxas": ptxas_table(log)})
 
 
 def phase_check():
@@ -288,6 +342,7 @@ def phase_check():
     rk, rb = hc.hal_wgrad_plain(g, st, dy)
     check_max("hal_wgrad dk fp32", dk, rk, 1e-5)
     check_max("hal_wgrad db fp32", db, rb, 1e-5)
+    check_wgrad_deterministic("fp32", dk, db, g, st, dy)
     emit({"phase": "check_fp32", "shape": small, "ok": True})
 
     b, f, h, w = SLICE["num_classes"] * SLICE["syn_steps"], SLICE["frames"], \
@@ -311,6 +366,7 @@ def phase_check():
     rk, rb = hc.hal_wgrad_plain(g, st, dy)
     res["hal_wgrad"] = max(check_max("hal_wgrad dk bf16", dk, rk, 1e-3),
                            check_max("hal_wgrad db bf16", db, rb, 1e-3))
+    check_wgrad_deterministic("bf16", dk, db, g, st, dy)
     emit({"phase": "check_bf16", "shape": (b, f, h, w),
           "max_abs_err": res, "ok": True})
 
@@ -331,19 +387,23 @@ def phase_check():
                       lambda: torch.nn.grad.conv3d_weight(x4, wt.shape, g,
                                                           padding=1)),
     }
-    bw, peak = card_peaks(torch.cuda.get_device_name(0))
+    bw, ffma, tensor = card_peaks(torch.cuda.get_device_name(0))
     hw, e = h * w, 2  # bf16 bytes
-    work = {  # (bytes moved, fp32 FLOPs) at this call's shapes
+    # (bytes moved, FLOPs) at this call's shapes; the bound takes the bf16
+    # products at the tensor cores' rate, the least time the card could
+    # take for them, and the FFMA time is reported beside it
+    work = {
         "hal_fwd": (e * b * hw * (3 + f + 3 * f),
                     b * hw * (f * 2 * 81 + 2 * 243 + 3 * f)),
         "hal_dgrad": (e * b * hw * (3 * f + f), b * f * hw * 2 * 81),
         "hal_wgrad": (e * b * hw * (3 * f + 3 + f) + 4 * 327,
                       b * hw * (f * 2 * 81 + 2 * 243 + 6 * f)),
     }
-    rows = {}
+    rows, ffma_ms = {}, {}
     for name, (kern, plain, lib) in ms.items():
         nbytes, flops = work[name]
-        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / tensor * 1e3
+        ffma_ms[name] = flops / ffma * 1e3
         rows[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": None,
@@ -351,7 +411,8 @@ def phase_check():
             "plain_ms": cuda_ms(plain, 3), "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": cuda_ms(lib, 5)}
-    emit({"phase": "times", "rows": list(rows.values())})
+    emit({"phase": "times", "rows": list(rows.values()),
+          "ffma_bound_ms": ffma_ms})
     return rows
 
 
@@ -566,8 +627,12 @@ def phase_check_first_stage():
     """The five first-stage kernels against their plain versions (fp32
     small, bf16 at the slice's inner-step shape, random and tied inputs),
     then timed at the slice's shape."""
-    for shape in ((2, 4, 16, 16, 3), (1, 1, 12, 8, 3), (3, 2, 16, 20, 2)):
-        _movers(shape, torch.float32, 10)
+    # F = 1, a generic C, an odd packed width, and rows (and a bf16
+    # tensor) whose byte length is not a multiple of 16
+    for shape in ((2, 4, 16, 16, 3), (1, 1, 12, 8, 3), (3, 2, 16, 20, 2),
+                  (1, 3, 10, 14, 3), (1, 3, 2, 6, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            _movers(shape, dtype, 10)
     for n, o, rows in ((100, 64, 25), (77, 8, 7), (64, 40, 64)):
         for ties in (False, True):
             _trio(n, o, rows, torch.float32, 11, ties)
@@ -609,7 +674,7 @@ def phase_check_first_stage():
                               1, idx64, c_rows),
                           e * 5 * n * o + n * o, 0),
     }
-    bw, peak = card_peaks(torch.cuda.get_device_name(0))
+    bw, peak, _ = card_peaks(torch.cuda.get_device_name(0))
     out = {}
     for name, (kern, plain, lib, nbytes, flops) in ms.items():
         t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
@@ -621,7 +686,16 @@ def phase_check_first_stage():
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if lib is None else cuda_ms(lib, 5)}
-    emit({"phase": "times", "rows": list(out.values())})
+    # pack also runs once per evaluation training step: fp32, B=50
+    xe = randn((*EVAL_SHAPE, 3), torch.float32, 14)
+    check_equal("pack fp32 evaluation shape", sm.pack(xe), sm.pack_plain(xe))
+    pack_eval = {"shape": tuple(xe.shape),
+                 "ms": cuda_ms(lambda: sm.pack(xe), 20),
+                 "plain_ms": cuda_ms(lambda: sm.pack_plain(xe), 3),
+                 "bound_ms": 4 * xe.numel() * (1 + 12 * (im // 2 + 4) ** 2
+                                               / im ** 2) / bw * 1e3}
+    emit({"phase": "times", "rows": list(out.values()),
+          "s2d2_pack_fp32_eval": pack_eval})
     return out
 
 
@@ -649,7 +723,7 @@ def phase_check_fused():
     # the library call is cuDNN's conv3d on the materialised 4-channel input
     x4 = torch.cat([st.permute(0, 3, 1, 2).unsqueeze(2).expand(b, 3, f, h, w),
                     dy.permute(0, 4, 1, 2, 3)], dim=1).contiguous()
-    bw, peak = card_peaks(torch.cuda.get_device_name(0))
+    bw, peak, _ = card_peaks(torch.cuda.get_device_name(0))
     hw = h * w
     # bytes: each fp32 input read once and y written once; operations: the
     # temporally collapsed form the kernel computes (243 static FMAs per

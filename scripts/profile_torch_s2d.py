@@ -13,7 +13,8 @@ all 50 synthetic videos in one batch) from a random S2D state at the same
 width: a 2-step warm-up run, then a run of ``--steps`` steps (one per
 epoch) under the profiler. Prints one JSON line: host wall time per step,
 the sum of device activity per step and its share of the wall time, device
-time by kernel family, the top kernels by device time, the device time
+time by kernel family, the top kernels by device time, each of the port's
+own kernels by name (time and calls per step), the device time
 of each convolution call site by its input shapes, the fused first stage's
 share (its five kernels plus its 2-D convolutions), and the cuDNN kernels
 of the first stage's GEMM (forward, dgrad, wgrad) profiled alone at the
@@ -224,6 +225,12 @@ def main(argv=None):
         "family_ms_per_step": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:120], "ms_per_step": ms,
                          "calls_per_step": c} for n, (ms, c) in top],
+        # the port's own kernels, each by name, wherever they rank
+        "port_kernels": [{"name": n[:120], "ms_per_step": ms,
+                          "calls_per_step": c}
+                         for n, (ms, c) in sorted(kernels.items())
+                         if family(n) in ("hallucinator kernels",
+                                          "first-stage kernels")],
         "conv_call_sites": convs[:16],
         "first_stage_ms_per_step": {
             "kernels": first_kernels, "convolutions_2d": first_convs,

@@ -26,8 +26,10 @@ from video_distillation_torch.ops import s2d2_move as sm
 
 pytestmark = pytest.mark.cuda
 
-# odd sizes: a ragged last block, W not a multiple of the warp, F = 1 and 2
-SHAPES = [(3, 5, 12, 20), (2, 1, 7, 9), (1, 2, 33, 17), (4, 8, 32, 32)]
+# odd sizes: a ragged last block, W not a multiple of the warp, F = 1 and 2,
+# H not a multiple of hal_wgrad's 8-row band at the slice's width
+SHAPES = [(3, 5, 12, 20), (2, 1, 7, 9), (1, 2, 33, 17), (4, 8, 32, 32),
+          (2, 3, 13, 112)]
 
 
 @pytest.fixture
@@ -74,6 +76,14 @@ def test_fp32_kernels_match_plain(cuda, shape):
     rk, rb = hc.hal_wgrad_plain(g, s, d)
     _close_fp32(dk, rk)
     _close_fp32(db, rb)
+    _assert_deterministic(dk, db, g, s, d)
+
+
+def _assert_deterministic(dk, db, g, s, d):
+    """A second hal_wgrad call on the same inputs gives the same bits (a
+    fixed summation order, no atomics)."""
+    dk2, db2 = hc.hal_wgrad(g, s, d)
+    assert torch.equal(dk, dk2) and torch.equal(db, db2)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -91,6 +101,7 @@ def test_bf16_kernels_round_once(cuda, shape):
     assert dk.dtype == torch.float32
     err = max(float((dk - rk).abs().max()), float((db - rb).abs().max()))
     assert err <= 1e-5 * float(torch.cat([rk.flatten(), rb]).abs().max())
+    _assert_deterministic(dk, db, g, s, d)
 
 
 @pytest.mark.parametrize("train_static", [True, False])
@@ -158,9 +169,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         hc.hal_fwd(s, d.cpu(), w, b)
 
 
-# (B, F, H, W, C): F = 1 and 2, H != W, C = 3 and a generic C, a ragged block
+# (B, F, H, W, C): F = 1 and 2, H != W, C = 3 and a generic C, a ragged block,
+# an odd packed width (W/2 + 4 = 11), and rows (and, in bf16, a tensor) whose
+# byte length is not a multiple of 16
 MOVER_SHAPES = [(2, 4, 8, 8, 3), (1, 1, 12, 8, 3), (3, 2, 16, 20, 2),
-                (2, 5, 36, 28, 3)]
+                (2, 5, 36, 28, 3), (1, 3, 10, 14, 3), (1, 3, 2, 6, 1)]
 # (N, O, rows_per_batch): ragged row tiles, batches that split a tile, O not
 # a multiple of 32
 TRIO_SHAPES = [(100, 64, 100), (100, 64, 25), (77, 8, 7), (64, 40, 64)]
@@ -187,6 +200,16 @@ def test_s2d2_movers_match_plain(cuda, shape, dtype):
     else:
         _close_bf16(out, ref)
     assert sm.LAUNCHES == {"s2d2_pack": 1, "s2d2_unpack": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_takes_an_unaligned_input(cuda, dtype):
+    """A contiguous input that starts one element past a 16-byte boundary
+    is staged word by word, bit-equal all the same."""
+    flat = _randn((1 + 2 * 36,), dtype, 7)
+    x = flat[1:].view(2, 3, 2, 6, 1)
+    assert x.data_ptr() % 16 != 0
+    assert torch.equal(sm.pack(x), sm.pack_plain(x))
 
 
 def _trio_inputs(n, o, g, dtype, seed, ties=False):

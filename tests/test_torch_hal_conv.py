@@ -31,11 +31,12 @@ def _interpret(monkeypatch):
     monkeypatch.setattr(hal_vjp, "INTERPRET", True)
 
 
-def _inputs(seed, mode="concat"):
+def _inputs(seed, mode="concat", shape=(B, F, H, W)):
+    b, f, h, w = shape
     rng = np.random.default_rng(seed)
-    static = rng.normal(size=(B, H, W, 3)).astype(np.float32)
-    dynamic = rng.normal(size=(B, F, H, W, 1)).astype(np.float32)
-    cot = rng.normal(size=(B, F, H, W, 3)).astype(np.float32)
+    static = rng.normal(size=(b, h, w, 3)).astype(np.float32)
+    dynamic = rng.normal(size=(b, f, h, w, 1)).astype(np.float32)
+    cot = rng.normal(size=(b, f, h, w, 3)).astype(np.float32)
     hal = JaxHallucinator(mode=mode)
     params = hal.init(jax.random.PRNGKey(seed), jnp.asarray(static),
                       jnp.asarray(dynamic))["params"]
@@ -106,8 +107,12 @@ def test_dgrad_flags(need_s, need_d):
         assert dd is None
 
 
-def test_wgrad_matches_pallas():
-    _, _, _, static, dynamic, cot = _inputs(3)
+# the kernel's edge cases: one and two frames, odd H and W, H not a
+# multiple of the kernel's 8-row band
+@pytest.mark.parametrize("shape", [(B, F, H, W), (2, 1, 7, 9), (1, 2, 7, 9),
+                                   (1, 3, 13, 8)])
+def test_wgrad_matches_pallas(shape):
+    _, _, _, static, dynamic, cot = _inputs(3, shape=shape)
     g = _t(cot).permute(0, 4, 1, 2, 3).contiguous()
     dk, db = hc.hal_wgrad(g, _t(static), _t(dynamic))
     rk, rb = hal_vjp._wgrad_impl(jnp.asarray(cot), jnp.asarray(static),

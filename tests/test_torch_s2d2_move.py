@@ -23,8 +23,10 @@ from video_distillation_tpu.models.layers import s2d2_pack as jax_xla_pack
 from video_distillation_tpu.ops.pallas import s2d2_move as jsm
 from video_distillation_torch.ops import s2d2_move as sm
 
-# (B, F, H, W, C): the JAX tests' shape, one frame, and H != W with C != 3
-SHAPES = [(2, 4, 8, 8, 3), (1, 1, 8, 12, 3), (2, 3, 12, 8, 2)]
+# (B, F, H, W, C): the JAX tests' shape, one frame, H != W with C != 3, an
+# odd packed width (W/2 + 4 = 11), and one frame with an odd packed width
+SHAPES = [(2, 4, 8, 8, 3), (1, 1, 8, 12, 3), (2, 3, 12, 8, 2),
+          (1, 3, 10, 14, 3), (2, 1, 6, 10, 3)]
 
 
 @pytest.fixture(autouse=True)

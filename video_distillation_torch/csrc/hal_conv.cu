@@ -11,13 +11,13 @@
 //   hal_dgrad_kernel  <- _dgrad_kernel  (hal_vjp.py:130)
 //   hal_wgrad_*       <- _wgrad_kernel  (hal_vjp.py:185)
 //
-// What bounds them on an H100: all three move about 0.8 GB and do about
-// 16-20 GFLOP of fp32 FMA at the S2D-MTT shapes (B=500, F=16, 112x112,
-// bf16), so the memory time (~0.25 ms at 3.35 TB/s) and the CUDA-core FMA
-// time (~0.25-0.29 ms at 67 TFLOP/s) are about equal. With 3 output and
-// 4 input channels there is nothing for the tensor cores to do.
+// What bounds them on an H100: all three move about 0.8 GB at the S2D-MTT
+// shapes (B=500, F=16, 112x112, bf16), ~0.25 ms at 3.35 TB/s. Their 16-20
+// GFLOP take 0.25-0.29 ms on the CUDA cores' fp32 FMA (67 TFLOP/s) but
+// 0.02 ms on the tensor cores (989 TFLOP/s dense bf16), so in bf16 the
+// bytes bound them.
 //
-// Design, against those bounds:
+// hal_fwd and hal_dgrad:
 //  * One thread per output pixel (b, h, w), looping over frames. Neighbouring
 //    threads hold neighbouring w, so every global load and store is
 //    coalesced and the 3x3 halo re-reads hit L1.
@@ -30,15 +30,18 @@
 //    it feeds, so a thread keeps 3 partial sums per channel, not a 27-value
 //    window.
 //  * Weights sit in shared memory (one broadcast read per FMA operand).
-//  * wgrad has no sequential grid to accumulate over, unlike the TPU: each
-//    block reduces its pixels' 327 partial sums in registers and warp
-//    shuffles into one row of a partial-sum buffer, and a second kernel sums
-//    the rows in a fixed order (deterministic, no atomics).
+// hal_wgrad (its section below): a block per (band of 8 rows, sample)
+// streams the frames through shared memory with cp.async, so ȳ, the
+// dynamic and the static are each read once; in bf16 the taps run on the
+// tensor cores (mma.sync). The TPU accumulates over a sequential grid; here
+// each block writes one row of partial sums and a second kernel sums the
+// rows in a fixed order (deterministic, no atomics).
 // Inputs may be fp32 or bf16; every sum is taken in fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -249,162 +252,509 @@ hal_dgrad_kernel(const T* __restrict__ g, const float* __restrict__ wb,
 }
 
 // ---------------------------------------------------------------------------
-// wgrad, pass 1: one row of 327 partial sums per (pixel chunk, sample).
-// Columns: [0, 81) dynamic taps (kt,kh,kw) x co; then for each co a block
-// of 82 = A (27: kh,kw,ci) | Bf (27) | Bl (27) | bias, where
-// A = sum_t g * s, Bf = g[t=0] * s, Bl = g[t=F-1] * s. blockIdx.z picks
-// the group: 0 = dynamic, 1..3 = static for co = z-1.
+// wgrad, pass 1: one block per (band of kBR pixel rows, sample) writes one
+// row of 327 partial sums in the output's order: dk in (kt,kh,kw,ci,co)
+// order, then db.
+//
+// The block streams the F frames through shared memory with cp.async, two
+// frames ahead, behind one barrier a frame: ȳ frame t+2 and dynamic frame
+// t+3 load while frame t is used. The dynamic frames sit in a ring of
+// tiles (t-1 .. t+3) with a one-pixel halo, rows padded to 16 bytes, and
+// cp.async writes them in place; rows outside the image and frames -1 and
+// F stay zero. The static's three channels are split into tiles of the same
+// layout once per block.
+//
+// bf16: the dynamic taps are a GEMM, [27 taps, padded to 32] x [16-pixel
+// k-blocks] x [3 co, padded to 8], on the tensor cores with
+// mma.sync.m16n8k16 (bf16 in, fp32 sums; bf16 products are exact in fp32).
+// wgmma wants 64-row tiles of a product whose M is 27 and whose operands
+// are shifted views of a 3-frame window, so the warp-level mma.sync is
+// taken: each warp owns whole k-blocks, and no warpgroup sync or
+// descriptor is needed. A lane's four A rows are one (kt, kh) group at
+// kw = 0, 1, 2 plus a ninth group's tap: it loads the three aligned words
+// around its pixel pair and forms the kw = 0 and 2 pairs with one byte
+// permute each, so no operand needs an unaligned load or a copy of the tile.
+// The static taps take the same path on the static tiles: frame 0 and frame
+// F-1 (Bf, Bl) as they pass, and Σ_t ȳ (A) at the end, split into bf16
+// hi + lo (exact to about 2^-16 relative). kt=1 takes A, kt=0 A - Bf and
+// kt=2 A - Bl.
+// fp32: the same tiles on FFMA (TF32 would change the result): a thread
+// per pixel for the dynamic taps, a thread per column for the static ones.
 // ---------------------------------------------------------------------------
-constexpr int kCols = 327;
-constexpr int kGroupCols = 82;
+constexpr int kBR = 8;  // pixel rows a wgrad block; ops/hal_conv.py agrees
+constexpr int kWarps = kThreads / 32;
+constexpr int kAhead = 2;  // ȳ frames in flight ahead of the one in use (3 is slower)
+constexpr int kGbuf = kAhead + 1;
+constexpr int kRing = 8;  // dynamic frames t-1 .. t+kAhead+1; 8 keeps the banks apart
+// Σ_t ȳ: a thread keeps the 16-byte chunks q = tid + i*kThreads, i < 2, in
+// registers; chunks past those (rows wider than 160 pixels) in shared memory
+constexpr int kSumRegChunks = 2;
+// the reduction's scratch: [dyn, A, Bf, Bl][warp][A row 32][co 4], then
+// [warp][co] for the bias; its dynamic quarter fits in the ring's tiles
+constexpr int kRedFloats = kWarps * 4 * 32 * 4;
+constexpr int kRedBytes = (kRedFloats + kWarps * 3) * 4;
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are in flight
 template <int N>
-__device__ __forceinline__ void block_reduce_store(float (&v)[N], float* red,
-                                                   float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    float s = v[j];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) red[warp * N + j] = s;
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// D += A * B on the tensor cores: A 16x16 (taps x pixels) and B 16x8
+// (pixels x co) in bf16, D 16x8 in fp32, in the m16n8k16 fragment layout.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// the 16-byte chunk's values (8 bf16 or 4 fp32) in fp32
+__device__ __forceinline__ void unpack(uint4 v, float (&x)[8]) {
+  x[0] = bf_lo(v.x); x[1] = bf_hi(v.x); x[2] = bf_lo(v.y); x[3] = bf_hi(v.y);
+  x[4] = bf_lo(v.z); x[5] = bf_hi(v.z); x[6] = bf_lo(v.w); x[7] = bf_hi(v.w);
+}
+__device__ __forceinline__ void unpack(uint4 v, float (&x)[4]) {
+  x[0] = __uint_as_float(v.x); x[1] = __uint_as_float(v.y);
+  x[2] = __uint_as_float(v.z); x[3] = __uint_as_float(v.w);
+}
+
+__device__ __forceinline__ uint32_t bf_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16(v));
+}
+
+// shared-memory layout of a wgrad block, the same on the host (launch
+// size) and the device. A tile holds kBR+2 rows (image rows h0-1 ..
+// h0+kBR) of kPad zeros, the row, and zeros, as 32-bit words.
+template <typename T>
+struct WgradSmem {
+  static constexpr int kEpw = 4 / sizeof(T);   // elements a word
+  static constexpr int kPad = 16 / sizeof(T);  // elements before a row
+  int Wk, RWd, SW, GPw;  // pixels a row padded to 16; words a tile row, a tile, a ȳ plane
+  size_t planes, gbuf, g0, sall, total;  // byte offsets; the ring at 0
+  __host__ __device__ explicit WgradSmem(int W) {
+    Wk = (W + 15) / 16 * 16;
+    // a half-warp's 64-bit loads of 4 (kt, kh) groups, or of the 3 co
+    // planes of ȳ, fall in 4 different 8-bank windows: tile rows 8 mod 32
+    // words apart, tiles 24 mod 32 (8 of them: 0 mod 32), planes 8
+    RWd = (2 * kPad + Wk) / kEpw;
+    RWd += (40 - RWd % 32) % 32;
+    SW = (kBR + 2) * RWd;
+    SW += (56 - SW % 32) % 32;
+    GPw = kBR * Wk / kEpw;
+    GPw += (40 - GPw % 32) % 32;
+    planes = (size_t)kRing * SW * 4;
+    const size_t tiles = planes + (size_t)3 * SW * 4;
+    gbuf = tiles > (size_t)kRedBytes ? tiles : (size_t)kRedBytes;  // ȳ: 3 frames x 3 co
+    g0 = gbuf + (size_t)kGbuf * 3 * GPw * 4;                      // ȳ frame 0
+    sall = g0 + (size_t)3 * GPw * 4;                              // Σ_t ȳ, fp32
+    total = sall + (size_t)3 * GPw * kEpw * 4;
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < nwarps; ++k) s += red[k * N + j];
-    out[j] = s;
+};
+
+// copy nrows rows of ncols elements, 16 bytes a cp.async where ``vec``
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int dst_stride,
+                                           const T* __restrict__ src,
+                                           int src_stride, int nrows,
+                                           int ncols, int vec) {
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int per = ncols / V;
+    for (int q = threadIdx.x; q < nrows * per; q += blockDim.x) {
+      const int r = q / per, c = (q - r * per) * V;
+      cp_async16(dst + r * dst_stride + c, src + (size_t)r * src_stride + c);
+    }
+  } else {
+    for (int q = threadIdx.x; q < nrows * ncols; q += blockDim.x) {
+      const int r = q / ncols, c = q - r * ncols;
+      dst[r * dst_stride + c] = src[(size_t)r * src_stride + c];
+    }
   }
+}
+
+__device__ __forceinline__ uint32_t pair_up(uint32_t x, uint32_t y) {
+  return __byte_perm(x, y, 0x5432);  // x's high half, then y's low half
+}
+
+// A fragments (two m-tiles) of a 16-pixel k-block. The k index is mapped
+// so that lane tig holds pixels 4tig .. 4tig+3 of the block (k = 2tig,
+// 2tig+1 -> 4tig, 4tig+1; k = 2tig+8, 2tig+9 -> 4tig+2, 4tig+3), the same
+// map for B: ``q`` is the (even) word of pixels 4tig, 4tig+1 in this
+// lane's group row. Rows: m-tile 0 = the group's taps kw=0 (rows 0-7) and
+// kw=1 (8-15); m-tile 1 = kw=2 (16-23), then the ninth group's tap
+// (24-26), whose words start at e + eo and whose kw ``sel`` picks.
+__device__ __forceinline__ void load_a(const uint32_t* s, int q, int e, int eo,
+                                       int sel, uint32_t (&a)[2][4]) {
+  const uint32_t wm = reinterpret_cast<const uint2*>(s + q - 2)->y;
+  const uint32_t wp = reinterpret_cast<const uint2*>(s + q + 2)->x;
+  const uint2 w = *reinterpret_cast<const uint2*>(s + q);
+  const uint32_t u0 = s[e + eo], u1 = s[e + eo + 1], u2 = s[e + eo + 2];
+  const uint32_t mid = pair_up(w.x, w.y);  // pixels 4tig+1, 4tig+2
+  a[0][0] = pair_up(wm, w.x);  // kw=0: pixels 4tig-1, 4tig
+  a[0][1] = w.x;               // kw=1
+  a[0][2] = mid;               // kw=0, second pair
+  a[0][3] = w.y;
+  a[1][0] = mid;               // kw=2: pixels 4tig+1, 4tig+2
+  a[1][1] = __byte_perm(u0, u1, sel);
+  a[1][2] = pair_up(w.y, wp);  // kw=2, second pair
+  a[1][3] = __byte_perm(u1, u2, sel);
+}
+
+// row of the A operand that holds tap kw of group G (9 groups of 3 taps)
+__device__ __forceinline__ int a_row(int G, int kw) {
+  return G < 8 ? G + 8 * kw : 24 + kw;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-hal_wgrad_partial_kernel(const T* __restrict__ g, const T* __restrict__ st,
-                         const T* __restrict__ dy, float* __restrict__ part,
-                         int B, int F, int H, int W) {
-  __shared__ float red[(kThreads / 32) * kGroupCols];
-  const int HW = H * W;
-  const int nchunk = gridDim.x, chunk = blockIdx.x;
-  const size_t b = blockIdx.y;
-  const int group = blockIdx.z;
-  const int lo = (int)((long long)chunk * HW / nchunk);
-  const int hi = (int)((long long)(chunk + 1) * HW / nchunk);
-  const size_t plane = (size_t)F * HW;
-  const T* gb = g + b * 3 * plane;
-  float* row = part + ((size_t)chunk * B + b) * kCols;
+__device__ __forceinline__ void wgrad_band(const T* __restrict__ g,
+                                           const T* __restrict__ st,
+                                           const T* __restrict__ dy,
+                                           float* __restrict__ part, int B,
+                                           int F, int H, int W, int vec) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  using Layout = WgradSmem<T>;
+  constexpr int kEpw = Layout::kEpw, kPad = Layout::kPad, V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(W);
+  T* ring = reinterpret_cast<T*>(smem);
+  T* planes = reinterpret_cast<T*>(smem + L.planes);
+  T* gbuf = reinterpret_cast<T*>(smem + L.gbuf);
+  T* g0 = reinterpret_cast<T*>(smem + L.g0);
+  float* sall = reinterpret_cast<float*>(smem + L.sall);
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(smem);
+  const int Wk = L.Wk, RWe = L.RWd * kEpw, SWe = L.SW * kEpw, GPe = L.GPw * kEpw;
+  const int band = blockIdx.x, b = blockIdx.y;
+  const int h0 = band * kBR, nr = min(kBR, H - h0);
+  const int hlo = max(h0 - 1, 0), hhi = min(h0 + kBR + 1, H);
+  const size_t HW = (size_t)H * W;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int nwb = Wk / 16;  // 16-pixel k-blocks a row; warp r takes row r
 
-  if (group == 0) {
-    // dynamic taps: sum over (t, pixel) of g[co, t] * d[t+kt-1, nbr]
-    float acc[81];
+  // zeros first (Σ_t ȳ starts from frame 0's values): pads, rows outside
+  // the image and frame -1 stay so
+  for (size_t q = tid; q < L.sall / 16; q += kThreads)
+    reinterpret_cast<uint4*>(smem)[q] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  // element of tile row rr (image row h0-1+rr), pixel w
+  auto tix = [&](int rr, int w) { return rr * RWe + kPad + w; };
+  auto stage_g = [&](int t) {
+    for (int co = 0; co < 3; ++co)
+      stage_rows(gbuf + ((t % kGbuf) * 3 + co) * GPe, Wk,
+                 g + (((size_t)b * 3 + co) * F + t) * HW + (size_t)h0 * W, W,
+                 nr, W, vec);
+  };
+  auto stage_d = [&](int t) {
+    stage_rows(ring + (t % kRing) * SWe + tix(hlo - h0 + 1, 0), RWe,
+               dy + ((size_t)b * F + t) * HW + (size_t)hlo * W, W, hhi - hlo,
+               W, vec);
+  };
+
+  // the static's rows hlo..hhi land interleaved in ring tiles 2..4, are
+  // split into one tile per channel, and those ring tiles are zeroed again
+  T* sraw = ring + 2 * SWe;
+  stage_rows(sraw, 0, st + ((size_t)b * H + hlo) * W * 3, 0, 1,
+             (hhi - hlo) * W * 3, vec);
+  stage_g(0);
+  stage_d(0);
+  if (F > 1) stage_d(1);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int p = tid; p < (hhi - hlo) * W; p += kThreads) {
+    const int rr = p / W, w = p - rr * W, e = tix(hlo - h0 + 1 + rr, w);
 #pragma unroll
-    for (int j = 0; j < 81; ++j) acc[j] = 0.f;
-    const T* db = dy + b * plane;
-    for (int p = lo + threadIdx.x; p < hi; p += blockDim.x) {
-      const int h = p / W, x = p - h * W;
-      float win[3][9];  // neighbourhoods of frames t-1, t, t+1
+    for (int ci = 0; ci < 3; ++ci) planes[ci * SWe + e] = sraw[p * 3 + ci];
+  }
+  __syncthreads();
+  for (int q = tid; q < 3 * L.SW; q += kThreads)
+    reinterpret_cast<uint32_t*>(sraw)[q] = 0u;
+  __syncthreads();
+  for (int k = 1; k < kAhead; ++k) {  // one group a frame: ȳ k, dynamic k+1
+    if (k < F) stage_g(k);
+    if (k + 1 < F) stage_d(k + 1);
+    cp_async_commit();
+  }
+
+  // bf16: this lane's A rows (see load_a), and the static groups' words
+  const int kwe = gid < 3 ? gid : 1;  // ninth group's kw; rows 27-31 pad
+  const int eo = kwe == 0 ? -1 : 0, sel = kwe == 1 ? 0x3210 : 0x5432;
+  const int s_g = (int)(L.planes / 4) + (gid % 3) * L.SW + (gid / 3) * L.RWd;
+  const int s_8 = (int)(L.planes / 4) + 2 * L.SW + 2 * L.RWd;  // kh=2, ci=2
+  float cd[2][4] = {};
+  // fp32: this thread's pixels' dynamic sums, and the static column
+  // (co, m = (kh*3+kw)*3+ci) that thread co*27+m owns
+  float acc[kBf16 ? 1 : 81] = {};
+  float col_a = 0.f, col_f = 0.f, col_l = 0.f;
+  const int nsum = 3 * GPe / V;  // 16-byte chunks of a ȳ frame
+  float sreg[kSumRegChunks][V];  // this thread's chunks of Σ_t ȳ
+
+  for (int t = 0; t < F; ++t) {
+    cp_async_wait<kAhead - 1>();  // ȳ frame t and dynamic frame t+1 have landed
+    __syncthreads();  // ... for every thread; frame t-1's buffers are free
+    if (t + kAhead < F) stage_g(t + kAhead);
+    if (t + kAhead + 1 < F) {
+      stage_d(t + kAhead + 1);
+    } else if (t + kAhead + 1 == F && F >= kRing) {  // frame F reads as zeros
+      uint32_t* z = reinterpret_cast<uint32_t*>(ring + (F % kRing) * SWe);
+      for (int q = tid; q < L.SW; q += kThreads) z[q] = 0u;
+    }
+    cp_async_commit();
+
+    // Σ_t ȳ (and frame 0's copy), chunk by chunk
+    const T* gt = gbuf + (t % kGbuf) * 3 * GPe;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) win[0][k] = 0.f;
+    for (int i = 0; i < kSumRegChunks; ++i) {
+      const int q = tid + i * kThreads;
+      if (q < nsum) {
+        const uint4 v = reinterpret_cast<const uint4*>(gt)[q];
+        if (t == 0) reinterpret_cast<uint4*>(g0)[q] = v;
+        float x[V];
+        unpack(v, x);
 #pragma unroll
-      for (int kh = 0; kh < 3; ++kh)
-#pragma unroll
-        for (int kw = 0; kw < 3; ++kw) {
-          const int hh = h + kh - 1, ww = x + kw - 1;
-          win[1][kh * 3 + kw] = (hh < 0 || hh >= H || ww < 0 || ww >= W)
-                                    ? 0.f : to_f<T>(db[hh * W + ww]);
+        for (int k = 0; k < V; ++k) sreg[i][k] = t == 0 ? x[k] : sreg[i][k] + x[k];
+      }
+    }
+    for (int q = tid + kSumRegChunks * kThreads; q < nsum; q += kThreads) {
+      const uint4 v = reinterpret_cast<const uint4*>(gt)[q];
+      if (t == 0) reinterpret_cast<uint4*>(g0)[q] = v;
+      float x[V];
+      unpack(v, x);
+      for (int k = 0; k < V; ++k) sall[q * V + k] = t == 0 ? x[k] : sall[q * V + k] + x[k];
+    }
+
+    if constexpr (kBf16) {
+      // dynamic group gid = (kt, kh): tile of frame t+kt-1, row kh; the
+      // ninth group is (kt=2, kh=2)
+      const int kt = gid / 3;
+      const int d_g = ((t + kt + kRing - 1) % kRing) * L.SW + (gid - kt * 3) * L.RWd;
+      const int d_8 = ((t + 1) % kRing) * L.SW + 2 * L.RWd;
+      const uint32_t* gw = reinterpret_cast<const uint32_t*>(gt);
+      for (int r = warp; r < nr; r += kWarps) {
+        const int rq = r * L.RWd + kPad / 2 + 2 * tig;
+        const int rb = gid * L.GPw + r * Wk / 2 + 2 * tig;
+        for (int wb = 0; wb < nwb; ++wb) {
+          // B: ȳ[co = gid] at pixels 4tig .. 4tig+3 of the block
+          const uint2 bv = gid < 3 ? *reinterpret_cast<const uint2*>(gw + rb + 8 * wb)
+                                   : make_uint2(0u, 0u);
+          const int q = rq + 8 * wb;
+          uint32_t a[2][4];
+          load_a(words, d_g + q, d_8 + q, eo, sel, a);
+          mma_bf16(cd[0], a[0], bv.x, bv.y);
+          mma_bf16(cd[1], a[1], bv.x, bv.y);
         }
-      for (int t = 0; t < F; ++t) {
-        const T* dn = db + (size_t)(t + 1) * HW;
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh)
-#pragma unroll
-          for (int kw = 0; kw < 3; ++kw) {
-            const int hh = h + kh - 1, ww = x + kw - 1;
-            win[2][kh * 3 + kw] =
-                (t + 1 >= F || hh < 0 || hh >= H || ww < 0 || ww >= W)
-                    ? 0.f : to_f<T>(dn[hh * W + ww]);
-          }
+      }
+    } else {
+      for (int p = tid; p < nr * W; p += kThreads) {
+        const int r = p / W, w = p - r * W;
         float gv[3];
 #pragma unroll
-        for (int co = 0; co < 3; ++co) gv[co] = to_f<T>(gb[co * plane + (size_t)t * HW + p]);
+        for (int co = 0; co < 3; ++co) gv[co] = to_f<T>(gt[co * GPe + r * Wk + w]);
 #pragma unroll
-        for (int kt = 0; kt < 3; ++kt)
+        for (int kt = 0; kt < 3; ++kt) {
+          const T* base = ring + ((t + kt + kRing - 1) % kRing) * SWe + tix(r, w) - 1;
 #pragma unroll
-          for (int k = 0; k < 9; ++k)
+          for (int k = 0; k < 9; ++k) {
+            const float v = to_f<T>(base[(k / 3) * RWe + k % 3]);
 #pragma unroll
-            for (int co = 0; co < 3; ++co)
-              acc[(kt * 9 + k) * 3 + co] += gv[co] * win[kt][k];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) {
-          win[0][k] = win[1][k];
-          win[1][k] = win[2][k];
+            for (int co = 0; co < 3; ++co) acc[(kt * 9 + k) * 3 + co] += gv[co] * v;
+          }
         }
       }
     }
-    block_reduce_store<81>(acc, red, row);
-  } else {
-    const int co = group - 1;
-    float acc[kGroupCols];
+  }
 #pragma unroll
-    for (int j = 0; j < kGroupCols; ++j) acc[j] = 0.f;
-    const T* sb = st + b * HW * 3;
-    const T* gc = gb + co * plane;
-    for (int p = lo + threadIdx.x; p < hi; p += blockDim.x) {
-      const int h = p / W, x = p - h * W;
-      float s_all = 0.f;
-      for (int t = 0; t < F; ++t) s_all += to_f<T>(gc[(size_t)t * HW + p]);
-      const float g_first = to_f<T>(gc[p]);
-      const float g_last = to_f<T>(gc[(size_t)(F - 1) * HW + p]);
+  for (int i = 0; i < kSumRegChunks; ++i) {
+    const int q = tid + i * kThreads;
+    if (q < nsum)
 #pragma unroll
-      for (int kh = 0; kh < 3; ++kh)
+      for (int k = 0; k < V; ++k) sall[q * V + k] = sreg[i][k];
+  }
+  __syncthreads();  // Σ_t ȳ and the copy of frame 0 complete
+
+  // reduction scratch over the tiles, [type: dyn, A, Bf, Bl][warp][A row
+  // 32][co 4] then [warp][co] for the bias: the dynamic sums go in now
+  // (over the ring, which is done with), the static ones after their pass
+  float* red = reinterpret_cast<float*>(smem);
+  float* redb = red + kRedFloats;
+  auto at = [&](int type, int w, int m, int co) -> float& {
+    return red[((type * kWarps + w) * 32 + m) * 4 + co];
+  };
+  if constexpr (kBf16) {
+    if (tig < 2) {
 #pragma unroll
-        for (int kw = 0; kw < 3; ++kw) {
-          const int hh = h + kh - 1, ww = x + kw - 1;
-          if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
-          const T* sp = sb + ((size_t)hh * W + ww) * 3;
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int ci = 0; ci < 3; ++ci) {
-            const float v = to_f<T>(sp[ci]);
-            const int n = (kh * 3 + kw) * 3 + ci;
-            acc[n] += s_all * v;
-            acc[27 + n] += g_first * v;
-            acc[54 + n] += g_last * v;
-          }
-        }
-      acc[81] += s_all;
+        for (int q = 0; q < 4; ++q)
+          at(0, warp, mt * 16 + gid + (q >= 2 ? 8 : 0), 2 * tig + (q & 1)) = cd[mt][q];
     }
-    block_reduce_store<kGroupCols>(acc, red, row + 81 + co * kGroupCols);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 81; ++j) {  // j = (kt*9 + kh*3 + kw)*3 + co
+      float s = acc[j];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      const int tap = j / 3, kt = tap / 9, kh = (tap / 3) % 3;
+      if (lane == 0) at(0, warp, a_row(kt * 3 + kh, tap % 3), j % 3) = s;
+    }
+  }
+
+  // the static products with frame 0 (Bf), frame F-1 (Bl) and Σ_t ȳ (A),
+  // and the bias's Σ ȳ
+  const T* gl = gbuf + ((F - 1) % kGbuf) * 3 * GPe;
+  float cf[2][4] = {}, cl[2][4] = {}, ca[2][4] = {};
+  float bsum = 0.f;
+  if constexpr (kBf16) {
+    for (int kb = warp; kb < nr * nwb; kb += kWarps) {
+      const int r = kb / nwb, w0 = (kb - r * nwb) * 16;
+      uint2 bf = make_uint2(0u, 0u), bl = bf;
+      uint32_t bh0 = 0u, bh1 = 0u, bl0 = 0u, bl1 = 0u;
+      if (gid < 3) {
+        const int e = (gid * GPe + r * Wk + w0) / 2 + 2 * tig;
+        bf = reinterpret_cast<const uint2*>(g0)[e / 2];
+        bl = reinterpret_cast<const uint2*>(gl)[e / 2];
+        const float4 s4 = *reinterpret_cast<const float4*>(
+            sall + gid * GPe + r * Wk + w0 + 4 * tig);
+        const float v[4] = {s4.x, s4.y, s4.z, s4.w};
+        uint32_t hb[4], lb[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          bsum += v[k];
+          hb[k] = bf_bits(v[k]);
+          lb[k] = bf_bits(v[k] - __uint_as_float(hb[k] << 16));
+        }
+        bh0 = hb[0] | hb[1] << 16;
+        bh1 = hb[2] | hb[3] << 16;
+        bl0 = lb[0] | lb[1] << 16;
+        bl1 = lb[2] | lb[3] << 16;
+      }
+      const int q = r * L.RWd + (kPad + w0) / 2 + 2 * tig;
+      uint32_t a[2][4];
+      load_a(words, s_g + q, s_8 + q, eo, sel, a);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma_bf16(cf[mt], a[mt], bf.x, bf.y);
+        mma_bf16(cl[mt], a[mt], bl.x, bl.y);
+        mma_bf16(ca[mt], a[mt], bh0, bh1);
+        mma_bf16(ca[mt], a[mt], bl0, bl1);
+      }
+    }
+    bsum += __shfl_xor_sync(0xffffffffu, bsum, 1);
+    bsum += __shfl_xor_sync(0xffffffffu, bsum, 2);
+  } else if (tid < 84) {  // threads 81-83: the bias of co = tid-81
+    const int co = tid < 81 ? tid / 27 : tid - 81, m = tid % 27;
+    const T* sp = planes + (m % 3) * SWe + tix(m / 9, (m / 3) % 3 - 1);
+    for (int r = 0; r < nr; ++r)
+      for (int w = 0; w < W; ++w) {
+        const int e = co * GPe + r * Wk + w;
+        const float v = tid < 81 ? to_f<T>(sp[r * RWe + w]) : 1.f;
+        col_a += sall[e] * v;
+        col_f += to_f<T>(g0[e]) * v;
+        col_l += to_f<T>(gl[e]) * v;
+      }
+    if (tid >= 81) bsum = col_a;
+  }
+
+  // the static sums into the scratch (over the static tiles, after every
+  // warp is done with them); then thread j sums column j over the warps in
+  // a fixed order (fp32: one column thread, warp 0's slot)
+  __syncthreads();
+  constexpr int kStaticWarps = kBf16 ? kWarps : 1;
+  if constexpr (kBf16) {
+    if (tig < 2) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = mt * 16 + gid + (q >= 2 ? 8 : 0), n = 2 * tig + (q & 1);
+          at(1, warp, m, n) = ca[mt][q];
+          at(2, warp, m, n) = cf[mt][q];
+          at(3, warp, m, n) = cl[mt][q];
+        }
+    }
+    if (tig == 0 && gid < 3) redb[warp * 3 + gid] = bsum;
+  } else if (tid < 81) {
+    const int co = tid / 27, m = tid - co * 27, ci = m % 3, kh = m / 9;
+    const int row = a_row(kh * 3 + ci, (m / 3) % 3);
+    at(1, 0, row, co) = col_a;
+    at(2, 0, row, co) = col_f;
+    at(3, 0, row, co) = col_l;
+  } else if (tid < 84) {
+    redb[tid - 81] = bsum;
+  }
+  __syncthreads();
+  for (int j = tid; j < kNWB; j += kThreads) {
+    float v = 0.f;
+    if (j < kNW) {
+      const int co = j % 3, ci = (j / 3) % 4, tap = j / 12;
+      const int kt = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+      if (ci == 3) {
+        const int row = a_row(kt * 3 + kh, kw);
+        for (int w = 0; w < kWarps; ++w) v += at(0, w, row, co);
+      } else {
+        // kt=1 sees every frame (A); kt=0 misses frame 0 (A - Bf); kt=2
+        // misses frame F-1 (A - Bl)
+        const int row = a_row(kh * 3 + ci, kw);
+        float e = 0.f;
+        for (int w = 0; w < kStaticWarps; ++w) v += at(1, w, row, co);
+        if (kt != 1)
+          for (int w = 0; w < kStaticWarps; ++w) e += at(kt == 0 ? 2 : 3, w, row, co);
+        v -= e;
+      }
+    } else {
+      for (int w = 0; w < kStaticWarps; ++w) v += redb[w * 3 + j - kNW];
+    }
+    part[((size_t)band * B + b) * kNWB + j] = v;
   }
 }
 
-// wgrad, pass 2: block j sums column(s) over all rows in a fixed order and
-// writes final value j: dk in (kt,kh,kw,ci,co) order for j < 324, then db.
+// 3 blocks of 256 threads an SM: at most 85 registers a thread
+__global__ void __launch_bounds__(kThreads, 3)
+hal_wgrad_band_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                           const __nv_bfloat16* __restrict__ st,
+                           const __nv_bfloat16* __restrict__ dy,
+                           float* __restrict__ part, int B, int F, int H,
+                           int W, int vec) {
+  wgrad_band(g, st, dy, part, B, F, H, W, vec);
+}
+
+__global__ void __launch_bounds__(kThreads)
+hal_wgrad_band_f32_kernel(const float* __restrict__ g,
+                          const float* __restrict__ st,
+                          const float* __restrict__ dy,
+                          float* __restrict__ part, int B, int F, int H, int W,
+                          int vec) {
+  wgrad_band(g, st, dy, part, B, F, H, W, vec);
+}
+
+inline auto wgrad_kernel(const __nv_bfloat16*) { return hal_wgrad_band_bf16_kernel; }
+inline auto wgrad_kernel(const float*) { return hal_wgrad_band_f32_kernel; }
+
+// wgrad, pass 2: block j sums column j over all rows in a fixed order.
 __global__ void __launch_bounds__(kThreads)
 hal_wgrad_finish_kernel(const float* __restrict__ part, int rows,
                         float* __restrict__ out) {
   __shared__ float red[kThreads / 32];
   const int j = blockIdx.x;
-  int c1, c2 = -1;
-  if (j < kNW) {
-    const int co = j % 3, ci = (j / 3) % 4, tap = j / 12;
-    const int kt = tap / 9, k = tap % 9;
-    if (ci == 3) {
-      c1 = tap * 3 + co;
-    } else {
-      // static: kt=1 sees every frame (A); kt=0 misses frame 0 (A - Bf);
-      // kt=2 misses frame F-1 (A - Bl)
-      c1 = 81 + co * kGroupCols + k * 3 + ci;
-      if (kt == 0) c2 = c1 + 27;
-      if (kt == 2) c2 = c1 + 54;
-    }
-  } else {
-    c1 = 81 + (j - kNW) * kGroupCols + 81;
-  }
   float s = 0.f;
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    s += part[(size_t)r * kCols + c1];
-    if (c2 >= 0) s -= part[(size_t)r * kCols + c2];
-  }
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) s += part[(size_t)r * kNWB + j];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
@@ -440,11 +790,23 @@ template <typename T>
 int launch_wgrad(const void* g, const void* st, const void* dy, float* part,
                  int nchunk, float* out, int B, int F, int H, int W,
                  cudaStream_t stream) {
-  const dim3 grid(nchunk, B, 4);
-  hal_wgrad_partial_kernel<T><<<grid, kThreads, 0, stream>>>(
+  if (nchunk != (H + kBR - 1) / kBR) return (int)cudaErrorInvalidValue;
+  const size_t smem = WgradSmem<T>(W).total;
+  auto kern = wgrad_kernel(static_cast<const T*>(nullptr));
+  int rc = 0;
+  if (smem > 48 * 1024) {
+    rc = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != 0) return rc;
+  }
+  const int vec = W % (16 / (int)sizeof(T)) == 0 &&
+                  reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(st) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  kern<<<dim3(nchunk, B), kThreads, smem, stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(st),
-      static_cast<const T*>(dy), part, B, F, H, W);
-  int rc = (int)cudaGetLastError();
+      static_cast<const T*>(dy), part, B, F, H, W, vec);
+  rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   hal_wgrad_finish_kernel<<<kNWB, kThreads, 0, stream>>>(part, nchunk * B, out);
   return (int)cudaGetLastError();
@@ -453,6 +815,8 @@ int launch_wgrad(const void* g, const void* st, const void* dy, float* part,
 }  // namespace
 
 // Plain C interface (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
+// hal_wgrad's nchunk is the number of row bands, ceil(H / 8), and part holds
+// nchunk * B rows of 327 floats (cudaErrorInvalidValue for another nchunk).
 // Each returns the cudaError_t of its launches; 0 means launched.
 extern "C" {
 

@@ -18,23 +18,49 @@
 // step (B=50, F=16, 112x112, C=3, bf16) pack reads 60 MB and writes 207 MB,
 // unpack the reverse: about 0.08 ms each at 3.35 TB/s.
 //
-// Design: the TPU kernel loads a whole video into VMEM and shuffles slot
-// planes there. Here both directions are gathers with one thread per output
-// element: neighbouring threads write neighbouring addresses (coalesced
-// stores), and the scattered reads of the 3-channel source pixels hit L1/L2.
-// unpack sums its three slots in fp32 and rounds once; no thread writes
-// another's element, so there are no atomics and the result is
-// deterministic. Blocks are laid out (chunk of one frame, frame b*F+f), so
-// the index arithmetic within a frame is 32-bit; offsets into the tensors
-// are 64-bit. C = 3 (RGB) is specialised at compile time.
+// pack's design. The TPU kernel loads a whole video into VMEM and shuffles
+// slot planes there. A block here covers (b, f, a band of R packed rows):
+//  * It stages the 2R input rows of frames f-1, f and f+1 that the band
+//    reads (each frame's rows are one contiguous span of x) into shared
+//    memory with 16-byte cp.async; a frame that does not exist and rows
+//    that fall in the 4-pixel pad are not loaded.
+//  * The band's output rows are one contiguous span of xv. Each thread
+//    assembles 16 bytes of it (8 bf16 or 4 fp32) from shared memory and
+//    writes them with one vector store; neighbouring threads write
+//    neighbouring chunks. One divide chain a chunk finds its first packed
+//    pixel and slot; then each word is a lookup in a slot table in shared
+//    memory (the slot's offset in the staged tile, or -1 for a missing
+//    frame) plus the pixel's base, stepped word by word (C = 3 at compile
+//    time). The pad and a missing frame's slots are written as zeros
+//    without a load.
+//  * It copies bits (16- or 32-bit words), so xv equals the plain version
+//    exactly. Shapes whose rows are not a multiple of 16 bytes, or a band
+//    that does not start on a 16-byte boundary of xv, take scalar loads and
+//    a scalar head and tail inside the kernel; xv's base must be 16-byte
+//    aligned (the wrapper allocates it).
+// Consecutive blocks are the bands of one frame and then the next frame's,
+// so the three blocks that read an input frame run close together and all
+// but the first find it in L2.
+//
+// unpack: a gather with one thread per output element: neighbouring threads
+// write neighbouring addresses (coalesced stores), and the scattered reads
+// of the 3-channel source pixels hit L1/L2. It sums its three slots in fp32
+// and rounds once; no thread writes another's element, so there are no
+// atomics and the result is deterministic. Blocks are laid out (chunk of
+// one frame, frame b*F+f), so the index arithmetic within a frame is
+// 32-bit; offsets into the tensors are 64-bit. C = 3 (RGB) is specialised
+// at compile time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+// shared memory a pack block aims at: R is the most rows whose 3 frames fit
+constexpr int kPackTileBytes = 24 * 1024;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -48,27 +74,120 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
-// kC > 0 fixes the channel count at compile time; kC == 0 reads C.
-template <typename T, int kC>
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// pack's staged input: planes dt = 0, 1, 2 of 2R rows of W*C words each,
+// a plane padded by 16 bytes so that the planes start in other banks.
+template <typename U>
+__host__ __device__ __forceinline__ int pack_plane(int R, int WC) {
+  return 2 * R * WC + 16 / (int)sizeof(U);
+}
+
+// kC > 0 fixes the channel count at compile time; kC == 0 reads C. U is
+// the element's storage word (uint16_t for bf16, uint32_t for fp32).
+template <typename U, int kC>
 __global__ void __launch_bounds__(kThreads)
-s2d2_pack_kernel(const T* __restrict__ x, T* __restrict__ out, int F, int H,
-                 int W, int C_) {
+s2d2_pack_kernel(const U* __restrict__ x, U* __restrict__ out, int F, int H,
+                 int W, int C_, int R, int vec_in) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  U* tile = reinterpret_cast<U*>(smem);
+  constexpr int V = 16 / sizeof(U);  // words a 16-byte chunk
   const int C = kC > 0 ? kC : C_;
-  const int Hc = H / 2 + 4, Wc = W / 2 + 4, K = 12 * C;
-  const int per_frame = Hc * Wc * K;
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= per_frame) return;
-  const int bf = blockIdx.y;
-  const int b = bf / F, f = bf - b * F;
-  const int pix = e / K, k = e - pix * K;
-  const int i = pix / Wc, j = pix - i * Wc;
-  const int s = k / C, c = k - s * C;
-  const int py = s / 6, px = (s / 3) & 1, dt = s % 3;
-  const int ff = f + dt - 1, h = 2 * i + py - 4, w = 2 * j + px - 4;
-  T v = from_f<T>(0.f);
-  if (ff >= 0 && ff < F && h >= 0 && h < H && w >= 0 && w < W)
-    v = x[(((size_t)(b * F + ff) * H + h) * W + w) * C + c];
-  out[(size_t)bf * per_frame + e] = v;
+  const int Hc = H / 2 + 4, Wc = W / 2 + 4, K = 12 * C, WC = W * C;
+  const int bf = blockIdx.y, b = bf / F, f = bf - b * F;
+  const int i0 = blockIdx.x * R, rows = min(R, Hc - i0);
+  const int plane = pack_plane<U>(R, WC);
+  unsigned fmask = 0;  // bit dt: frame f+dt-1 exists
+#pragma unroll
+  for (int dt = 0; dt < 3; ++dt)
+    if (f + dt - 1 >= 0 && f + dt - 1 < F) fmask |= 1u << dt;
+  // the slot map: slot k of a packed pixel reads tile word
+  // tab[k] + 2*r*WC + (2*j-4)*C, or is zero (-1: its frame is missing)
+  int* tab = reinterpret_cast<int*>(smem + 3 * (size_t)plane * sizeof(U));
+  for (int k = threadIdx.x; k < K; k += kThreads) {
+    const int s = k / C, c = k - s * C;
+    const int py = s / 6, px = (s / 3) & 1, dt = s - (s / 3) * 3;
+    tab[k] = fmask >> dt & 1 ? dt * plane + py * WC + px * C + c : -1;
+  }
+
+  // stage: packed rows [ilo, ihi) read input rows 2*ilo-4 .. 2*ihi-5, which
+  // sit at tile rows 2*(ilo-i0) onwards; the band's other rows are pad
+  const int ilo = max(i0, 2), ihi = min(i0 + rows, Hc - 2);
+  if (ilo < ihi) {
+    const int n = 2 * (ihi - ilo) * WC;
+    for (int dt = 0; dt < 3; ++dt) {
+      if (!(fmask >> dt & 1)) continue;
+      const U* src = x + ((size_t)(b * F + f + dt - 1) * H + (2 * ilo - 4)) * WC;
+      U* dst = tile + dt * plane + 2 * (ilo - i0) * WC;
+      if (vec_in) {
+        for (int q = threadIdx.x; q < n / V; q += kThreads)
+          cp_async16(dst + q * V, src + q * V);
+      } else {
+        for (int q = threadIdx.x; q < n; q += kThreads) dst[q] = src[q];
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // packed pixel (i0 + r, j) reads the input unless it lies in the pad
+  auto inside = [&](int r, int j) {
+    return i0 + r >= 2 && i0 + r < Hc - 2 && j >= 2 && j < Wc - 2;
+  };
+
+  // the band's output is one span of rows*Wc*K words from element e0; its
+  // 16-byte chunks go by vector stores, the words before the first aligned
+  // one (head) and after the last (tail) one by one
+  const int row_words = Wc * K;
+  const size_t e0 = ((size_t)bf * Hc + i0) * row_words;
+  const int n_out = rows * row_words;
+  const int head = min((int)((V - e0 % V) % V), n_out);
+  const int nvec = (n_out - head) / V;
+  const int tail0 = head + nvec * V;
+  U* o = out + e0;
+  for (int q = threadIdx.x; q < nvec; q += kThreads) {
+    const int e = head + q * V;
+    int r = e / row_words;
+    const int rem = e - r * row_words;
+    int j = rem / K, k = rem - j * K;
+    int base = 2 * r * WC + (2 * j - 4) * C;
+    bool ok = inside(r, j);
+    union {
+      uint4 v;
+      U u[V];
+    } pk;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int tk = tab[k];
+      pk.u[v] = ok && tk >= 0 ? tile[base + tk] : U(0);
+      if (++k == K) {  // the next packed pixel
+        k = 0;
+        base += 2 * C;
+        if (++j == Wc) {
+          j = 0;
+          ++r;
+          base = 2 * r * WC - 4 * C;
+        }
+        ok = inside(r, j);
+      }
+    }
+    *reinterpret_cast<uint4*>(o + e) = pk.v;
+  }
+  if ((int)threadIdx.x < head + (n_out - tail0)) {  // fewer than 2V words
+    const int e = (int)threadIdx.x < head ? (int)threadIdx.x
+                                           : tail0 + ((int)threadIdx.x - head);
+    const int r = e / row_words, rem = e - r * row_words;
+    const int j = rem / K, tk = tab[rem - j * K];
+    o[e] = inside(r, j) && tk >= 0 ? tile[2 * r * WC + (2 * j - 4) * C + tk] : U(0);
+  }
 }
 
 template <typename T, int kC>
@@ -97,18 +216,36 @@ s2d2_unpack_kernel(const T* __restrict__ g, T* __restrict__ out, int F, int H,
   out[(size_t)bf * per_frame + e] = from_f<T>(acc);
 }
 
-template <typename T>
+template <typename U, int kC>
+int launch_pack_c(const U* x, U* out, int B, int F, int H, int W, int C,
+                  int R, int vec_in, size_t smem, cudaStream_t stream) {
+  auto kern = s2d2_pack_kernel<U, kC>;
+  if (smem > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != 0) return rc;
+  }
+  const int Hc = H / 2 + 4;
+  const dim3 grid((Hc + R - 1) / R, B * F);
+  kern<<<grid, kThreads, smem, stream>>>(x, out, F, H, W, C, R, vec_in);
+  return (int)cudaGetLastError();
+}
+
+template <typename U>
 int launch_pack(const void* x, void* out, int B, int F, int H, int W, int C,
                 cudaStream_t stream) {
-  const int per_frame = (H / 2 + 4) * (W / 2 + 4) * 12 * C;
-  const dim3 grid((per_frame + kThreads - 1) / kThreads, B * F);
-  const T* xp = static_cast<const T*>(x);
-  T* op = static_cast<T*>(out);
-  if (C == 3)
-    s2d2_pack_kernel<T, 3><<<grid, kThreads, 0, stream>>>(xp, op, F, H, W, C);
-  else
-    s2d2_pack_kernel<T, 0><<<grid, kThreads, 0, stream>>>(xp, op, F, H, W, C);
-  return (int)cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int WC = W * C, Hc = H / 2 + 4;
+  const size_t row_bytes = (size_t)WC * sizeof(U);
+  int R = (int)(kPackTileBytes / (6 * row_bytes));
+  R = R < 1 ? 1 : (R > Hc ? Hc : R);
+  const size_t smem = 3 * (size_t)pack_plane<U>(R, WC) * sizeof(U) + 12 * C * sizeof(int);
+  const int vec_in = reinterpret_cast<uintptr_t>(x) % 16 == 0 && row_bytes % 16 == 0;
+  const U* xp = static_cast<const U*>(x);
+  U* op = static_cast<U*>(out);
+  return C == 3 ? launch_pack_c<U, 3>(xp, op, B, F, H, W, C, R, vec_in, smem, stream)
+                : launch_pack_c<U, 0>(xp, op, B, F, H, W, C, R, vec_in, smem, stream);
 }
 
 template <typename T>
@@ -130,14 +267,15 @@ int launch_unpack(const void* g, void* out, int B, int F, int H, int W, int C,
 // Plain C interface (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
 // Tensors are contiguous; the wrapper checks shapes, that H and W are even,
 // that B*F fits the grid's y dimension and that one frame's elements fit an
-// int. Each returns the cudaError_t of its launch; 0 means launched.
+// int. pack's output must be 16-byte aligned (cudaErrorMisalignedAddress
+// otherwise). Each returns the cudaError_t of its launch; 0 means launched.
 extern "C" {
 
 int s2d2_pack(int dtype, const void* x, void* out, int B, int F, int H, int W,
               int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_pack<__nv_bfloat16>(x, out, B, F, H, W, C, s)
-                    : launch_pack<float>(x, out, B, F, H, W, C, s);
+  return dtype == 1 ? launch_pack<uint16_t>(x, out, B, F, H, W, C, s)
+                    : launch_pack<uint32_t>(x, out, B, F, H, W, C, s);
 }
 
 int s2d2_unpack(int dtype, const void* g, void* out, int B, int F, int H,

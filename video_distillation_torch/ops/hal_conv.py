@@ -38,7 +38,7 @@ from . import build
 LAUNCHES = {"hal_fwd": 0, "hal_dgrad": 0, "hal_wgrad": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_WGRAD_PIXELS_PER_BLOCK = 4096
+_WGRAD_BAND_ROWS = 8  # kBR in csrc/hal_conv.cu: pixel rows a wgrad block
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -213,7 +213,7 @@ def hal_wgrad(g, static, dynamic) -> Tuple[torch.Tensor, torch.Tensor]:
     if _on_cpu(g, static, dynamic):
         return hal_wgrad_plain(g, static, dynamic)
     _check_cuda_inputs("hal_wgrad", g, static, dynamic)
-    nchunk = -(-(h * w) // _WGRAD_PIXELS_PER_BLOCK)
+    nchunk = -(-h // _WGRAD_BAND_ROWS)
     part = torch.empty(nchunk * b, 327, device=g.device, dtype=torch.float32)
     out = torch.empty(327, device=g.device, dtype=torch.float32)
     rc = _lib().hal_wgrad(_DTYPE_CODE[g.dtype], g.data_ptr(), static.data_ptr(),
