@@ -15,7 +15,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              fp32 summation order); the fp32 weight gradient at 1e-3 of its
              largest |value|, and bit-equal across two calls. Times kernel,
              plain version and the cuDNN convolution that computes the same
-             function; the bound takes the bf16 products at the tensor
+             function (``hal_dgrad`` dd only, as the slice runs it, and
+             with ds beside it); the bound takes the bf16 products at the tensor
              cores' rate and reports the FFMA time beside it.
 3. parity  — one fp32 S2D-MTT step at a small shape (3 classes, 64x64x8,
              syn_steps=2) on the card and on the CPU from the same inputs,
@@ -35,14 +36,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 5. check_first_stage — the five first-stage kernels (``ops.s2d2_move``:
              pack, unpack; ``ops.phase_trio``: argmax, select, scatter)
              against their plain versions: fp32 and bf16 at small shapes
-             (the movers also at an odd packed width and at rows that are
-             not a multiple of 16 bytes) and bf16 at the slice's
+             (the movers also at an odd packed width, at rows that are
+             not a multiple of 16 bytes and at F = 9) and bf16 at the slice's
              inner-step shape (pack 50x16x112x112x3, the phase
              trio on the 627,200 x 256 GEMM output, m channel-planar), on
              random inputs and on inputs rounded so that phases tie. pack,
-             the trio and the winner index must equal the plain versions bit
-             for bit; unpack must equal the fp32 plain version in fp32 and be
-             within one bf16 ulp of it in bf16. Each is timed there beside
+             unpack, the trio and the winner index must equal the plain
+             versions bit for bit (unpack sums in fp32 in the plain
+             version's order and rounds once). Each is timed there beside
              its plain version and, where one PyTorch call computes the same
              function, that call (``max`` over the phase axis, ``gather``,
              ``scatter_`` into zeros). pack is also checked and timed in
@@ -411,8 +412,18 @@ def phase_check():
             "plain_ms": cuda_ms(plain, 3), "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": cuda_ms(lib, 5)}
+    # hal_dgrad with the static cotangent too (off the main path, whose
+    # static is frozen): ȳ read once, ds and dd written; the static's
+    # stencils (729 FMAs a pixel) and Σ_t ȳ on top of dd's products
+    nbytes = e * b * hw * (3 * f + f + 3)
+    flops = b * f * hw * 2 * 81 + b * hw * (2 * 729 + 3 * f)
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / tensor * 1e3
+    ds_dd = {"ms": cuda_ms(lambda: hc.hal_dgrad(g, wt, True, True), 10),
+             "plain_ms": cuda_ms(lambda: hc.hal_dgrad_plain(g, wt), 3),
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     emit({"phase": "times", "rows": list(rows.values()),
-          "ffma_bound_ms": ffma_ms})
+          "ffma_bound_ms": ffma_ms, "hal_dgrad_ds_dd": ds_dd})
     return rows
 
 
@@ -586,17 +597,14 @@ def first_stage_ab(t0, t1):
 
 
 def _movers(shape, dtype, seed):
-    """pack and unpack against their plain versions; returns (unpack's max
-    error, x, g)."""
+    """pack and unpack against their plain versions, bit for bit; returns
+    (unpack's max error, x, g)."""
     b, f, h, w, c = shape
     x = randn(shape, dtype, seed)
     check_equal(f"pack {dtype} {shape}", sm.pack(x), sm.pack_plain(x))
     g = randn((b, f, h // 2 + 4, w // 2 + 4, 12 * c), dtype, seed + 1)
-    out, ref = sm.unpack_sum(g, h, w), sm.unpack_plain(g.float(), h, w)
-    if dtype == torch.float32:
-        err = check_equal(f"unpack fp32 {shape}", out, ref)
-    else:
-        err = check_bf16(f"unpack bf16 {shape}", out, ref)
+    err = check_equal(f"unpack {dtype} {shape}", sm.unpack_sum(g, h, w),
+                      sm.unpack_plain(g, h, w))
     return err, x, g
 
 
@@ -627,10 +635,11 @@ def phase_check_first_stage():
     """The five first-stage kernels against their plain versions (fp32
     small, bf16 at the slice's inner-step shape, random and tied inputs),
     then timed at the slice's shape."""
-    # F = 1, a generic C, an odd packed width, and rows (and a bf16
-    # tensor) whose byte length is not a multiple of 16
+    # F = 1, a generic C, an odd packed width, rows (and a bf16 tensor)
+    # whose byte length is not a multiple of 16, and F = 9 (two of unpack's
+    # 8-frame blocks)
     for shape in ((2, 4, 16, 16, 3), (1, 1, 12, 8, 3), (3, 2, 16, 20, 2),
-                  (1, 3, 10, 14, 3), (1, 3, 2, 6, 1)):
+                  (1, 3, 10, 14, 3), (1, 3, 2, 6, 1), (2, 9, 4, 112, 3)):
         for dtype in (torch.float32, torch.bfloat16):
             _movers(shape, dtype, 10)
     for n, o, rows in ((100, 64, 25), (77, 8, 7), (64, 40, 64)):

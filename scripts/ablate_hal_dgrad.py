@@ -1,0 +1,239 @@
+"""Where ``hal_dgrad``'s and ``s2d2_unpack``'s time goes, by ablation, on
+one NVIDIA GPU.
+
+    python3 scripts/ablate_hal_dgrad.py [--kernel hal_dgrad|s2d2_unpack]
+
+Builds variants of ``video_distillation_torch/csrc/hal_conv.cu`` (bf16
+``hal_dgrad``, dd only, as the S2D-MTT slice runs it) and of
+``csrc/s2d2_move.cu`` (``s2d2_unpack``), each with one part cut out or one
+setting changed by a text substitution (a cut variant's results are wrong;
+only its time counts), into ``video_distillation_torch/_build/ablate/`` with
+nvcc, one process per variant in parallel. Then times each through its C
+interface at the slice's shapes: ``hal_dgrad`` on ȳ (B=500, 3, F, 112, 112)
+with F = 16 and 1 (the F=1 time is the per-block fixed cost plus one
+frame), ``s2d2_unpack`` on the packed (50, 16, 60, 60, 36) cotangent.
+Prints one JSON line per variant, then the card's name and power limit.
+About a minute on an H100, most of it the builds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from video_distillation_torch.ops import build  # noqa: E402
+
+# variant -> [(text, replacement)]; every text must occur in the source
+# after the kernel's marker, where the substitution is made
+DGRAD_MARK = "hal_dgrad_kernel(const T* __restrict__ g"
+DGRAD = {
+    "full": [],
+    "no_tap_products": [  # neither the operand loads nor the mma
+        ("for (int kh = 0; kh < 3; ++kh) {\n          // tile row of image row",
+         "for (int kh = 0; kh < 0; ++kh) {\n          // tile row of image row")],
+    "no_mma": [  # the operand loads feed a cheap sum instead
+        ("mma_bf16(acc[k][0], ae, bh[kh][0].x, bh[kh][0].y);",
+         "acc[k][0][0] += __uint_as_float((ae[0] ^ ae[2]) & 0x3fffffffu);"),
+        ("mma_bf16(acc[k][1], ao, bh[kh][1].x, bh[kh][1].y);",
+         "acc[k][1][0] += __uint_as_float((ao[1] ^ ao[3]) & 0x3fffffffu);")],
+    "no_operand_loads": [  # the mma on operands made in registers
+        ("lds128(x0 + 1, words + base + q);",
+         "for (int i = 0; i < 6; ++i) x0[i] = x1[i] = (base + q + i) * 0x00010001u;"),
+        ("x0[0] = words[base + q - 1];", ""), ("x0[5] = words[base + q + 4];", ""),
+        ("lds128(x1 + 1, words + base + lane_row + q);", ""),
+        ("x1[0] = words[base + lane_row + q - 1];", ""),
+        ("x1[5] = words[base + lane_row + q + 4];", "")],
+    "twice_the_operand_loads": [  # each 16-byte load issued twice
+        ("lds128(x0 + 1, words + base + q);",
+         "lds128(x0 + 1, words + base + q);\n        lds128(x0 + 1, words + base + q);"),
+        ("lds128(x1 + 1, words + base + lane_row + q);",
+         "lds128(x1 + 1, words + base + lane_row + q);\n"
+         "        lds128(x1 + 1, words + base + lane_row + q);")],
+    "twice_the_mma": [  # each product issued twice
+        ("mma_bf16(acc[k][0], ae, bh[kh][0].x, bh[kh][0].y);",
+         "mma_bf16(acc[k][0], ae, bh[kh][0].x, bh[kh][0].y);\n"
+         "          mma_bf16(acc[k][0], ae, bh[kh][0].x, bh[kh][0].y);"),
+        ("mma_bf16(acc[k][1], ao, bh[kh][1].x, bh[kh][1].y);",
+         "mma_bf16(acc[k][1], ao, bh[kh][1].x, bh[kh][1].y);\n"
+         "          mma_bf16(acc[k][1], ao, bh[kh][1].x, bh[kh][1].y);")],
+    "operands_loaded_into_quads": [  # each mma's A words loaded for it alone
+        ("const uint32_t ae[4] = {x0[k + 1], x1[k + 1], x0[k], x1[k]};\n"
+         "            const uint32_t ao[4] = {x0[k + 1], x1[k + 1], x0[k + 2], x1[k + 2]};",
+         "uint32_t ae[4], ao[4];\n"
+         "            const int o[4] = {base + q + k, base + lane_row + q + k, "
+         "base + q + k - 1, base + lane_row + q + k - 1};\n"
+         "            for (int i = 0; i < 4; ++i) {\n"
+         "              asm volatile(\"ld.shared.u32 %0, [%1];\" : \"=r\"(ae[i]) "
+         ": \"r\"(smem_addr(words + o[i])));\n"
+         "              asm volatile(\"ld.shared.u32 %0, [%1];\" : \"=r\"(ao[i]) "
+         ": \"r\"(smem_addr(words + o[i] + (i < 2 ? 0 : 2))));\n"
+         "            }")],
+    "no_streaming": [  # only the first kDRing frames are loaded
+        ("mbar_arrive_expect_tx(&full[s], 3 * nrows * ncols * (int)sizeof(T));",
+         "mbar_arrive_expect_tx(&full[s], t < kDRing ? 3 * nrows * ncols * (int)sizeof(T) : 0);"),
+        ("for (int k = lane; k < 3 * nrows; k += 32) {\n          const int co",
+         "for (int k = lane; k < (t < kDRing ? 3 * nrows : 0); k += 32) {\n          const int co")],
+    "no_dd_stores": [("      if (tt >= 0) {\n        store8", "      if (tt >= 1 << 30) {\n        store8")],
+}
+DGRAD_SETTINGS = {  # settings changed before the kernel's marker
+    "two_frames_ahead": [("constexpr int kDAhead = 3;", "constexpr int kDAhead = 2;")],
+    "four_frames_ahead": [("constexpr int kDAhead = 3;", "constexpr int kDAhead = 4;")],
+    "one_block_an_sm": [("__launch_bounds__(kDThreads, kS ? 1 : 2)",
+                          "__launch_bounds__(kDThreads, 1)")],
+    "three_blocks_an_sm": [("__launch_bounds__(kDThreads, kS ? 1 : 2)",
+                            "__launch_bounds__(kDThreads, kS ? 1 : 3)")],
+}
+UNPACK_MARK = "s2d2_unpack_kernel(const T* __restrict__ g"
+UNPACK = {
+    "full": [],
+    "no_staging": [("cp_async16(dst + r * RL + c, src + (size_t)r * Wc * K + c);", "")],
+    "no_slot_loads": [
+        ("if (fmask >> dt & 1) acc += to_f<T>(sl[dt][off]);",
+         "if (fmask >> dt & 1) acc += (float)(off + dt);")],
+    "no_stores": [("*reinterpret_cast<uint4*>(o + e) = pk.v;",
+                   "if (pk.v.x == 0x7fc17fc1u) *reinterpret_cast<uint4*>(o + e) = pk.v;")],
+}
+UNPACK_SETTINGS = {
+    "two_frames_ahead": [("constexpr int kUAhead = 1;", "constexpr int kUAhead = 2;")],
+    "four_frames_a_block": [("constexpr int kUFrames = 8;", "constexpr int kUFrames = 4;")],
+    "sixteen_frames_a_block": [("constexpr int kUFrames = 8;", "constexpr int kUFrames = 16;")],
+    "slot_16k": [("constexpr int kUnpackSlotBytes = 8 * 1024;",
+                  "constexpr int kUnpackSlotBytes = 16 * 1024;")],
+    "threads_128": [("constexpr int kUThreads = 256;", "constexpr int kUThreads = 128;")],
+}
+
+
+def variant_sources(src, mark, cuts, settings):
+    i = src.index(mark)
+    head, tail = src[:i], src[i:]
+    texts = {}
+    for name, subs in {**cuts, **settings}.items():
+        h, t = head, tail
+        for old, new in subs:
+            part = t if name in cuts else h
+            if old not in part:
+                raise RuntimeError(f"{name}: {old!r} is not in the source")
+            if name in cuts:
+                t = t.replace(old, new)
+            else:
+                h = h.replace(old, new)
+        texts[name] = h + t
+    return texts
+
+
+def build_variants(texts, tag, out_dir):
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    try:
+        for name, text in texts.items():
+            cu = os.path.join(out_dir, f"{tag}_{name}.cu")
+            with open(cu, "w") as fh:
+                fh.write(text)
+            so = os.path.join(out_dir, f"lib{tag}_{name}.so")
+            procs[name] = (subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+        logs = {name: proc.communicate()[0] for name, (proc, _) in procs.items()}
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    libs = {}
+    for name, (proc, so) in procs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag} {name}:\n{logs[name]}")
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+def cuda_ms(fn, iters=20):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def checked(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError_t {rc}")
+
+
+def ablate_dgrad(out_dir):
+    src = (build.CSRC_DIR / "hal_conv.cu").read_text()
+    libs = build_variants(variant_sources(src, DGRAD_MARK, DGRAD, DGRAD_SETTINGS),
+                          "dgrad", out_dir)
+    b, f, h, w = 500, 16, 112, 112
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(b, 3, f, h, w, generator=gen, device="cuda").bfloat16()
+    wb = torch.randn(327, generator=gen, device="cuda").bfloat16().float()
+    dd = torch.empty(b, f, h, w, device="cuda", dtype=torch.bfloat16)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, lib in libs.items():
+        lib.hal_dgrad.argtypes = [i, p, p, p, p, i, i, i, i, p]
+
+        def call(frames, lib=lib):
+            # frames < f reads the first frames of each sample's planes
+            checked(lib.hal_dgrad(1, g.data_ptr(), wb.data_ptr(), None,
+                                  dd.data_ptr(), b, frames, h, w, stream()),
+                    name)
+        print(json.dumps({"kernel": "hal_dgrad", "variant": name,
+                          **{f"ms_F{n}": cuda_ms(lambda: call(n)) for n in (f, 1)}}),
+              flush=True)
+
+
+def ablate_unpack(out_dir):
+    src = (build.CSRC_DIR / "s2d2_move.cu").read_text()
+    libs = build_variants(variant_sources(src, UNPACK_MARK, UNPACK, UNPACK_SETTINGS),
+                          "unpack", out_dir)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(50, 16, 60, 60, 36, generator=gen, device="cuda").bfloat16()
+    out = torch.empty(50, 16, 112, 112, 3, device="cuda", dtype=torch.bfloat16)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, lib in libs.items():
+        lib.s2d2_unpack.argtypes = [i, p, p, i, i, i, i, i, p]
+        ms = cuda_ms(lambda lib=lib: checked(lib.s2d2_unpack(
+            1, g.data_ptr(), out.data_ptr(), 50, 16, 112, 112, 3, stream()), name))
+        print(json.dumps({"kernel": "s2d2_unpack", "variant": name, "ms": ms}),
+              flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=["hal_dgrad", "s2d2_unpack"],
+                    action="append", help="default: both")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("ablate_hal_dgrad.py: needs a CUDA device")
+    out_dir = str(build.BUILD_DIR / "ablate")
+    kernels = args.kernel or ["hal_dgrad", "s2d2_unpack"]
+    if "hal_dgrad" in kernels:
+        ablate_dgrad(out_dir)
+    if "s2d2_unpack" in kernels:
+        ablate_unpack(out_dir)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -11,9 +11,9 @@ in other orders); a bf16 result within one bf16 rounding (2^-7 relative)
 of the plain version computed in fp32 from the same bf16 inputs, plus 1e-5
 of the largest |value| for the fp32 summation order. The first-stage
 kernels copy values: pack, the phase trio and the winner index equal their
-plain versions bit for bit; unpack sums three values in fp32 and rounds
-once, so it equals the plain version in fp32 and is within one bf16
-rounding of it in bf16.
+plain versions bit for bit; unpack sums three values in fp32 in the plain
+version's order and rounds once, so it equals the plain version bit for
+bit in both dtypes.
 """
 
 import pytest
@@ -27,9 +27,11 @@ from video_distillation_torch.ops import s2d2_move as sm
 pytestmark = pytest.mark.cuda
 
 # odd sizes: a ragged last block, W not a multiple of the warp, F = 1 and 2,
-# H not a multiple of hal_wgrad's 8-row band at the slice's width
+# H not a multiple of hal_wgrad's 8-row band at the slice's width; for
+# hal_dgrad's tiling, H one past its 16-row band, W one past a 16-pixel unit
+# and one past its 112-column band, F = 1 and 2 at width 112
 SHAPES = [(3, 5, 12, 20), (2, 1, 7, 9), (1, 2, 33, 17), (4, 8, 32, 32),
-          (2, 3, 13, 112)]
+          (2, 3, 13, 112), (2, 1, 17, 112), (1, 2, 16, 113), (2, 2, 17, 17)]
 
 
 @pytest.fixture
@@ -171,9 +173,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
 
 # (B, F, H, W, C): F = 1 and 2, H != W, C = 3 and a generic C, a ragged block,
 # an odd packed width (W/2 + 4 = 11), and rows (and, in bf16, a tensor) whose
-# byte length is not a multiple of 16
+# byte length is not a multiple of 16; F = 9 spans two of unpack's 8-frame
+# blocks
 MOVER_SHAPES = [(2, 4, 8, 8, 3), (1, 1, 12, 8, 3), (3, 2, 16, 20, 2),
-                (2, 5, 36, 28, 3), (1, 3, 10, 14, 3), (1, 3, 2, 6, 1)]
+                (2, 5, 36, 28, 3), (1, 3, 10, 14, 3), (1, 3, 2, 6, 1),
+                (2, 9, 4, 112, 3)]
 # (N, O, rows_per_batch): ragged row tiles, batches that split a tile, O not
 # a multiple of 32
 TRIO_SHAPES = [(100, 64, 100), (100, 64, 25), (77, 8, 7), (64, 40, 64)]
@@ -194,11 +198,7 @@ def test_s2d2_movers_match_plain(cuda, shape, dtype):
     g = _randn((b, f, h // 2 + 4, w // 2 + 4, 12 * c), dtype, 5)
     out = sm.unpack_sum(g, h, w)
     assert out.dtype == dtype
-    ref = sm.unpack_plain(g.float(), h, w)
-    if dtype == torch.float32:
-        assert torch.equal(out, ref)
-    else:
-        _close_bf16(out, ref)
+    assert torch.equal(out, sm.unpack_plain(g, h, w))
     assert sm.LAUNCHES == {"s2d2_pack": 1, "s2d2_unpack": 1}
 
 
@@ -210,6 +210,31 @@ def test_pack_takes_an_unaligned_input(cuda, dtype):
     x = flat[1:].view(2, 3, 2, 6, 1)
     assert x.data_ptr() % 16 != 0
     assert torch.equal(sm.pack(x), sm.pack_plain(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unpack_takes_an_unaligned_input(cuda, dtype):
+    """A packed input one element past a 16-byte boundary is staged word by
+    word, bit-equal all the same."""
+    n = 2 * 3 * 8 * 9 * 36
+    g = _randn((1 + n,), dtype, 8)[1:].view(2, 3, 8, 9, 36)
+    assert g.data_ptr() % 16 != 0
+    assert torch.equal(sm.unpack_sum(g, 8, 10), sm.unpack_plain(g, 8, 10))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dgrad_takes_an_unaligned_input(cuda, dtype):
+    """ȳ one element past a 16-byte boundary: hal_dgrad stages it element
+    by element, within the usual tolerance of the plain version."""
+    b, f, h, w = 2, 3, 17, 112
+    g = _randn((1 + b * 3 * f * h * w,), dtype, 9)[1:].view(b, 3, f, h, w)
+    assert g.data_ptr() % 16 != 0
+    wt = _randn((3, 4, 3, 3, 3), dtype, 10)
+    rs, rd = hc.hal_dgrad_plain(g.float(), wt.float())
+    ds, dd = hc.hal_dgrad(g, wt)
+    close = _close_fp32 if dtype == torch.float32 else _close_bf16
+    close(ds, rs)
+    close(dd, rd)
 
 
 def _trio_inputs(n, o, g, dtype, seed, ties=False):

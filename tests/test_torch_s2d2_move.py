@@ -4,7 +4,9 @@ the XLA chain ``layers.s2d2_pack``.
 
 Inputs from numpy seeds. Tolerances: pack is a copy, so exact; unpack and
 the first-order gradient (a 3-term sum in fp32) within 1e-6 relative of
-the JAX values, or exact where the JAX side sums in the same order; the
+the JAX values, or exact where the JAX side sums in the same order; in
+bf16, unpack equals the exact sum rounded once, and the JAX results (which
+round after each add) lie within 2^-7 of the terms' magnitudes of it; the
 second-order HVP (torch double backward against JAX's grad-of-jvp) at the
 JAX package's own rtol 1e-4 (``tests/test_s2d2_move.py``) through a
 sine loss (the JAX tests' tanh loss cancels in 1 - tanh^2, which the two
@@ -62,6 +64,28 @@ def test_unpack_matches_jax_kernel(shape):
     ref = np.asarray(jsm.unpack_sum(jnp.asarray(g), h, w))
     assert out.shape == shape
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_unpack_bf16_rounds_the_exact_sum_once(shape):
+    """In bf16 the port's unpack is the exact (fp64) sum of each element's
+    three slots rounded once to bf16. The JAX package's Pallas kernel and
+    the vjp of its XLA chain add in bf16, rounding after each add, so they
+    may differ from it by more than one rounding (a known difference, not a
+    fault): both stay within 2^-7 of the sum of the terms' magnitudes."""
+    b, f, h, w, c = shape
+    g16 = torch.from_numpy(_np(1, _packed_shape(shape))).bfloat16()
+    out = sm.unpack_sum(g16, h, w)
+    assert out.dtype == torch.bfloat16
+    exact = sm.unpack_plain(g16.double(), h, w)  # fp64, exact for 3 bf16 terms
+    magnitude = sm.unpack_plain(g16.double().abs(), h, w).numpy()
+    assert torch.equal(out, exact.to(torch.bfloat16))
+    gj = jnp.asarray(g16.float().numpy()).astype(jnp.bfloat16)
+    _, vjp = jax.vjp(jax_xla_pack, jnp.zeros((b, f, h, w, c), jnp.bfloat16))
+    for ref in (jsm.unpack_sum(gj, h, w), vjp(gj)[0]):
+        assert ref.dtype == jnp.bfloat16
+        err = np.abs(np.asarray(ref.astype(jnp.float32), np.float64) - exact.numpy())
+        assert np.all(err <= 2.0 ** -7 * magnitude)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

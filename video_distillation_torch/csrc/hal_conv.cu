@@ -17,7 +17,7 @@
 // 0.02 ms on the tensor cores (989 TFLOP/s dense bf16), so in bf16 the
 // bytes bound them.
 //
-// hal_fwd and hal_dgrad:
+// hal_fwd:
 //  * One thread per output pixel (b, h, w), looping over frames. Neighbouring
 //    threads hold neighbouring w, so every global load and store is
 //    coalesced and the 3x3 halo re-reads hit L1.
@@ -30,10 +30,10 @@
 //    it feeds, so a thread keeps 3 partial sums per channel, not a 27-value
 //    window.
 //  * Weights sit in shared memory (one broadcast read per FMA operand).
-// hal_wgrad (its section below): a block per (band of 8 rows, sample)
-// streams the frames through shared memory with cp.async, so ȳ, the
-// dynamic and the static are each read once; in bf16 the taps run on the
-// tensor cores (mma.sync). The TPU accumulates over a sequential grid; here
+// hal_wgrad and hal_dgrad (their sections below): a block per band of rows
+// of a sample streams the frames through shared memory with cp.async, so
+// each input is read once; in bf16 the taps run on the tensor cores
+// (mma.sync). For wgrad the TPU accumulates over a sequential grid; here
 // each block writes one row of partial sums and a second kernel sums the
 // rows in a fixed order (deterministic, no atomics).
 // Inputs may be fp32 or bf16; every sum is taken in fp32.
@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -168,87 +170,6 @@ hal_fwd_kernel(const T* __restrict__ st, const T* __restrict__ dy,
 #pragma unroll
   for (int co = 0; co < 3; ++co)
     yb[co * plane + (size_t)(F - 1) * HW + p] = from_f<T>(a_prev[co]);
-}
-
-// ---------------------------------------------------------------------------
-// dgrad: ds[b, h, w, ci] (optional) and dd[b, t, h, w] (optional) from g
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-hal_dgrad_kernel(const T* __restrict__ g, const float* __restrict__ wb,
-                 T* __restrict__ ds, T* __restrict__ dd, int F, int H, int W) {
-  __shared__ float sw[kNWB];
-  load_weights(wb, sw);
-  const int HW = H * W;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= HW) return;
-  const size_t b = blockIdx.y;
-  const int h = p / W, x = p - h * W;
-  const size_t plane = (size_t)F * HW;
-  const T* gb = g + b * 3 * plane;
-
-  if (dd != nullptr) {
-    // g frame t at (h+1-kh, w+1-kw) feeds dd frames t-1 (kt=0), t (kt=1)
-    // and t+1 (kt=2); after frame t, dd frame t-1 is complete
-    T* ddb = dd + b * plane;
-    float a_prev = 0.f, a_cur = 0.f;
-    for (int t = 0; t < F; ++t) {
-      float a_next = 0.f;
-      const T* gf = gb + (size_t)t * HW;
-#pragma unroll
-      for (int kh = 0; kh < 3; ++kh) {
-        const int hh = h + 1 - kh;
-#pragma unroll
-        for (int kw = 0; kw < 3; ++kw) {
-          const int ww = x + 1 - kw;
-          if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
-#pragma unroll
-          for (int co = 0; co < 3; ++co) {
-            const float v = to_f<T>(gf[co * plane + hh * W + ww]);
-            a_prev += sw[widx(0, kh, kw, 3, co)] * v;
-            a_cur += sw[widx(1, kh, kw, 3, co)] * v;
-            a_next += sw[widx(2, kh, kw, 3, co)] * v;
-          }
-        }
-      }
-      if (t >= 1) ddb[(size_t)(t - 1) * HW + p] = from_f<T>(a_prev);
-      a_prev = a_cur;
-      a_cur = a_next;
-    }
-    ddb[(size_t)(F - 1) * HW + p] = from_f<T>(a_prev);
-  }
-
-  if (ds != nullptr) {
-    // the static input at (h, w) reaches every frame: per neighbour, the
-    // temporal sums of g over the frames each kt tap is valid for
-    float acc[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kh = 0; kh < 3; ++kh) {
-      const int hh = h + 1 - kh;
-#pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        const int ww = x + 1 - kw;
-        if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
-        const size_t q = (size_t)hh * W + ww;
-#pragma unroll
-        for (int co = 0; co < 3; ++co) {
-          const T* gq = gb + co * plane + q;
-          float s_all = 0.f;
-          for (int t = 0; t < F; ++t) s_all += to_f<T>(gq[(size_t)t * HW]);
-          const float t0 = s_all - to_f<T>(gq[0]);                      // kt=0: t >= 1
-          const float t2 = s_all - to_f<T>(gq[(size_t)(F - 1) * HW]);   // kt=2: t <= F-2
-#pragma unroll
-          for (int ci = 0; ci < 3; ++ci)
-            acc[ci] += sw[widx(0, kh, kw, ci, co)] * t0 +
-                       sw[widx(1, kh, kw, ci, co)] * s_all +
-                       sw[widx(2, kh, kw, ci, co)] * t2;
-        }
-      }
-    }
-    T* dsp = ds + (b * HW + p) * 3;
-#pragma unroll
-    for (int ci = 0; ci < 3; ++ci) dsp[ci] = from_f<T>(acc[ci]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -766,6 +687,454 @@ hal_wgrad_finish_kernel(const float* __restrict__ part, int rows,
   }
 }
 
+// ---------------------------------------------------------------------------
+// dgrad: dd[b, t, h, w] (optional) and ds[b, h, w, ci] (optional) from ȳ.
+//
+// dd is the 27-tap flipped stencil of ȳ summed over the 3 output channels:
+// ȳ frame t at (h+1-kh, w+1-kw) feeds dd frames t-1 (kt=0), t (kt=1) and
+// t+1 (kt=2). The old kernel (a thread a pixel, 27 scalar 2-byte global
+// loads a pixel-frame behind bounds checks) was bound by load issue at 11%
+// of its byte bound. Here a block per (band of kDR rows, column band of at
+// most kDCW pixels, sample) streams the F frames of ȳ through a ring of
+// kDRing shared-memory tiles, so ȳ is read from DRAM once (the halo rows
+// from L2). A producer warp fills the ring with bulk copies (the copy
+// engine, a row of a co plane each) that complete on a "full" mbarrier per
+// slot; the 8 consumer warps wait on it, compute, and release the slot on
+// an "empty" mbarrier. No block-wide barrier a frame: each warp runs ahead
+// as far as the data allows. A tile holds the three co planes of kDR+2
+// rows (a one-row halo each side) and the band's columns with 8 more each
+// side; what lies outside the image stays zero, so the stencil has no
+// bounds checks. Rows that are not 16-byte multiples, or an unaligned ȳ,
+// are copied element by element by the producer's lanes instead.
+//
+// bf16: the taps are mma.sync.m16n8k16 products, exact in fp32:
+//   A = 16 pixels x K, B = K x 8 weight columns, D = 16 pixels x 8.
+// The A operand is a shifted view of the tile. Instead of staging shifted
+// copies (an extra shared-memory pass a frame) or byte permutes, the pixels
+// of one mma share a parity: rows gid and gid+8 are pixels of two
+// neighbouring image rows at the same column. For an even pixel x the
+// aligned word (x,x+1) holds taps kw=1,0 and the word (x-2,x-1) tap kw=2
+// beside a zero weight; for an odd x the words (x-1,x) and (x+1,x+2). So
+// K is, per kh, one word pair per co (lane tig reads plane co=tig; tig=3
+// reads a zero row), and the even and odd mmas share the middle word. A
+// lane owns 8 neighbouring pixels (4 pixel pairs) of its two rows, so one
+// 16-byte and two 4-byte loads a row feed 8 mmas per kh. B carries the
+// parity's weights; its columns are dd frames mod 3, so that frame t's kt
+// tap lands in column (t-1+kt) mod 3 and each column keeps its running sum
+// in the mma accumulators across the three frames it receives: no
+// shuffles, and with the frame loop unrolled by three the finished column
+// is known at compile time. The B fragments for frame t come from a table
+// in shared memory. Weights that are not bf16 values (fp32 weights with
+// bf16 ȳ) add a second mma with their bf16 remainder. Two warps share a
+// row pair of the band, one 64-pixel unit each. The lanes that hold a
+// finished column store their 8 pixels of a row as one 16-byte store.
+// fp32: the same tiles on FFMA (TF32 would change the result), a thread
+// owning fixed pixels of the band with three running sums each.
+// ds: Σ_t ȳ (fp32) and a copy of frame 0 build up in shared memory as the
+// frames pass; the static's flipped 2-D stencils run on them, frame 0 and
+// frame F-1 once at the end, so ȳ is read once for both outputs.
+// ---------------------------------------------------------------------------
+constexpr int kDR = 8;      // rows a dgrad block: 4 row pairs, 2 warps each
+constexpr int kDCW = 112;   // most columns a dgrad block (2 units of 64)
+constexpr int kDOff = 8;    // tile element p holds image column cx0 - kDOff + p
+constexpr int kDAhead = 3;  // ȳ frames the producer may run ahead of the consumers
+constexpr int kDRing = kDAhead + 1;
+constexpr int kDRows = kDR + 2;
+constexpr int kDFp = (kDR * kDCW + kThreads - 1) / kThreads;  // fp32 pixels a thread
+constexpr int kDThreads = kThreads + 32;  // 8 consumer warps and a producer
+static_assert(kDR == kWarps, "two warps a row pair of a dgrad band");
+
+// shared-memory layout of a dgrad block, the same on the host and the
+// device: the ring of ȳ tiles at 0 (a tile: 3 planes of kDRows rows of RWe
+// elements; element p of a row is image column cx0 - kDOff + p), a zero row,
+// then [bf16] the B table, then [ds] Σ_t ȳ and frame 0, then the mbarriers.
+template <typename T>
+struct DgradSmem {
+  static constexpr int kEpw = 4 / sizeof(T);
+  int CW, RWw, RWe, PS, PSe, SL;  // columns; a row in words, elements; a plane; a tile (words)
+  size_t zero, btab, sums, f0, bars, total;  // byte offsets
+  __host__ __device__ DgradSmem(int W, bool with_s) {
+    CW = (W < kDCW ? W : kDCW);
+    CW = (CW + 15) / 16 * 16;
+    RWw = ((2 * 64 + 16) / kEpw + 31) / 32 * 32;  // two units; rows 0 mod 32 words apart
+    RWe = RWw * kEpw;
+    PS = kDRows * RWw + 8;  // planes 8 banks apart
+    PSe = PS * kEpw;
+    SL = (3 * PS + 31) / 32 * 32;
+    zero = ((size_t)kDRing * SL + 24) * 4;  // 24 banks past the tiles
+    btab = ((size_t)kDRing * SL + 24 + RWw + 31) / 32 * 32 * 4;
+    sums = btab + (sizeof(T) == 2 ? (size_t)2 * 72 * 8 : 0);
+    f0 = sums + (with_s ? (size_t)3 * PSe * 4 : 0);
+    bars = (f0 + (with_s ? (size_t)SL * 4 : 0) + 7) / 8 * 8;
+    total = bars + (size_t)2 * kDRing * 8;  // full and empty mbarriers
+  }
+};
+
+// 16 bytes from shared memory (p 16-byte aligned)
+__device__ __forceinline__ void lds128(uint32_t* v, const uint32_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t bf_pair(float lo, float hi) {
+  return bf_bits(lo) | bf_bits(hi) << 16;
+}
+
+// remainder of v after rounding to bf16
+__device__ __forceinline__ float bf_rest(float v) {
+  return v - __uint_as_float(bf_bits(v) << 16);
+}
+
+template <int N> using Phase = std::integral_constant<int, N>;
+
+// mbarriers in shared memory (8 bytes each) and the bulk copy that
+// completes on one
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+// bytes (a multiple of 16; both ends 16-byte aligned) from global to
+// shared memory by the copy engine, counted on bar's transaction count
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// this thread's generic-proxy writes to shared memory before the async
+// proxy's (the bulk copies)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// dd alone: 2 blocks an SM (at most 113 registers); with ds, whose frame
+// sums would spill there, one block's registers are not capped
+template <typename T, int kS>
+__global__ void __launch_bounds__(kDThreads, kS ? 1 : 2)
+hal_dgrad_kernel(const T* __restrict__ g, const float* __restrict__ wb,
+                 T* __restrict__ ds, T* __restrict__ dd, int F, int H, int W,
+                 int vec_in, int vec_out) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  using Layout = DgradSmem<T>;
+  __shared__ float sw[kNWB];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(W, kS != 0);
+  const int RWe = L.RWe, PSe = L.PSe, SLe = L.SL * Layout::kEpw;
+  T* ring = reinterpret_cast<T*>(smem);
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);  // slot s holds frame t
+  uint64_t* empty = full + kDRing;                               // slot s is read
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int ncb = (W + kDCW - 1) / kDCW;
+  const int rb = blockIdx.x / ncb, cb = blockIdx.x - rb * ncb;
+  const int h0 = rb * kDR, cx0 = cb * kDCW;
+  const int nr = min(kDR, H - h0), CW = min(kDCW, W - cx0);
+  const int b = blockIdx.y;
+  const size_t HW = (size_t)H * W;
+  const bool need_d = dd != nullptr;
+
+  for (int i = tid; i < kNWB; i += kDThreads) sw[i] = wb[i];
+  // zeros: tiles (pads, rows and columns outside the image stay so) and
+  // the zero row
+  for (size_t q = tid; q < L.btab / 16; q += kDThreads)
+    reinterpret_cast<uint4*>(smem)[q] = make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int s = 0; s < kDRing; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // B table (bf16): [hi | lo][kt][kh][par][tig] -> (b0, b1); see above
+  bool rest = false;
+  if constexpr (kBf16) {
+    uint2* bt = reinterpret_cast<uint2*>(smem + L.btab);
+    if (tid < 72) {
+      const int tg = tid & 3, par = (tid >> 2) & 1, kh = (tid >> 3) % 3, kt = tid / 24;
+      float w0 = 0.f, w1 = 0.f, w2 = 0.f;
+      if (tg < 3) {
+        w0 = sw[widx(kt, kh, 0, 3, tg)];
+        w1 = sw[widx(kt, kh, 1, 3, tg)];
+        w2 = sw[widx(kt, kh, 2, 3, tg)];
+      }
+      const float r0 = bf_rest(w0), r1 = bf_rest(w1), r2 = bf_rest(w2);
+      rest = r0 != 0.f || r1 != 0.f || r2 != 0.f;
+      bt[tid] = par == 0 ? make_uint2(bf_pair(w1, w0), bf_pair(0.f, w2))
+                         : make_uint2(bf_pair(w2, w1), bf_pair(w0, 0.f));
+      bt[72 + tid] = par == 0 ? make_uint2(bf_pair(r1, r0), bf_pair(0.f, r2))
+                              : make_uint2(bf_pair(r2, r1), bf_pair(r0, 0.f));
+    }
+  }
+  const bool use_rest = __syncthreads_or(rest);
+
+  if (warp == kWarps) {
+    // the producer warp: ȳ frame t into ring slot t % kDRing, once the
+    // consumers are done with frame t - kDRing there: the rows hlo..hhi-1
+    // and columns xlo..xhi-1 the band reads that lie inside the image
+    const int hlo = max(h0 - 1, 0), hhi = min(h0 + kDR + 1, H);
+    const int xlo = max(cx0 - 8, 0), xhi = min(cx0 + CW + 8, W);
+    const int nrows = hhi - hlo, ncols = xhi - xlo;
+    fence_proxy_async();  // the zeros before the copies
+    for (int t = 0; t < F; ++t) {
+      const int s = t % kDRing;
+      if (t >= kDRing) mbar_wait(&empty[s], (t / kDRing - 1) & 1);
+      T* slot = ring + (size_t)s * SLe + (hlo - h0 + 1) * RWe + (xlo - cx0 + kDOff);
+      const T* src = g + ((size_t)b * 3 * F + t) * HW + (size_t)hlo * W + xlo;
+      if (vec_in) {  // a bulk copy a (co, row)
+        if (lane == 0) mbar_arrive_expect_tx(&full[s], 3 * nrows * ncols * (int)sizeof(T));
+        __syncwarp();
+        for (int k = lane; k < 3 * nrows; k += 32) {
+          const int co = k / nrows, r = k - co * nrows;
+          bulk_copy(slot + co * PSe + r * RWe, src + (size_t)co * F * HW + (size_t)r * W,
+                    ncols * sizeof(T), &full[s]);
+        }
+      } else {  // element by element
+        for (int k = 0; k < 3 * nrows; ++k) {
+          const int co = k / nrows, r = k - co * nrows;
+          T* d = slot + co * PSe + r * RWe;
+          const T* sp = src + (size_t)co * F * HW + (size_t)r * W;
+          for (int c = lane; c < ncols; c += 32) d[c] = sp[c];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // the consumer warps. bf16: the warp's rows r0, r0+1 and unit u
+    // (columns 64u ..); lane gid's pixel pairs 64u + 8gid + 2k, k < 4, even
+    // and odd accumulators; this lane's plane (tig = 3: the zero row)
+    float acc[4][2][4] = {};
+    const int r0 = 2 * (warp >> 1), unit = warp & 1;
+    const int xs = 64 * unit + 8 * gid;  // the lane's first pixel
+    const int lane_plane = tig < 3 ? tig * L.PS : 0;
+    const int lane_row = tig < 3 ? L.RWw : 0;
+    const int zero_w = (int)(L.zero / 4);
+    T* ddw = need_d ? dd + ((size_t)b * F * H + h0 + r0) * W + cx0 + xs : nullptr;
+    // fp32: pixel q = tid + i*kThreads of the band, three running sums
+    float fa[kDFp][3] = {};
+
+    // bf16: dd frame tt's 8 pixels xs .. xs+7 of band row r0+rr, from the
+    // accumulator entries e of the even and odd pixels
+    auto store8 = [&](int tt, int rr, int e) {
+      if (r0 + rr >= nr || xs >= CW) return;
+      T* p = ddw + (size_t)tt * HW + rr * W;
+      if (vec_out && xs + 8 <= CW) {
+        *reinterpret_cast<uint4*>(p) =
+            make_uint4(bf_pair(acc[0][0][e], acc[0][1][e]), bf_pair(acc[1][0][e], acc[1][1][e]),
+                       bf_pair(acc[2][0][e], acc[2][1][e]), bf_pair(acc[3][0][e], acc[3][1][e]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int par = 0; par < 2; ++par)
+            if (xs + 2 * k + par < CW) p[2 * k + par] = from_f<T>(acc[k][par][e]);
+      }
+    };
+    // bf16: store the finished column c (dd frame tt, when tt >= 0) and
+    // zero it for the frame it takes next
+    auto finish = [&](int tt, auto col) {
+      constexpr int c = decltype(col)::value, s = c & 1;
+      if (tig != (c >> 1)) return;
+      if (tt >= 0) {
+        store8(tt, 0, s);
+        store8(tt, 1, 2 + s);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int par = 0; par < 2; ++par) {
+          acc[k][par][s] = 0.f;
+          acc[k][par][2 + s] = 0.f;
+        }
+    };
+
+    // frame t, t % 3 == P
+    auto frame = [&](int t, auto phase) {
+      constexpr int P = decltype(phase)::value;
+      const int sl = t % kDRing;
+      mbar_wait(&full[sl], (t / kDRing) & 1);  // frame t has landed
+      const T* slot = ring + (size_t)sl * SLe;
+
+      if constexpr (kS != 0) {  // Σ_t ȳ in fp32, in frame order, and frame 0
+        float* sums = reinterpret_cast<float*>(smem + L.sums);
+        T* f0 = reinterpret_cast<T*>(smem + L.f0);
+        for (int q = tid; q < 3 * PSe; q += kThreads) {
+          const float v = to_f<T>(slot[q]);
+          if (t == 0) {
+            sums[q] = v;
+            f0[q] = slot[q];
+          } else {
+            sums[q] += v;
+          }
+        }
+      }
+
+      if (!need_d) {
+      } else if constexpr (kBf16) {
+        // this frame's B: lane gid < 3 holds column gid = dd frame mod 3,
+        // fed by tap kt = (gid - t + 1) mod 3
+        const uint2* bt = reinterpret_cast<const uint2*>(smem + L.btab);
+        const int kt = (gid + 4 - P) % 3;
+        uint2 bh[3][2];
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+          for (int par = 0; par < 2; ++par)
+            bh[kh][par] = gid < 3 ? bt[((kt * 3 + kh) * 2 + par) * 4 + tig] : make_uint2(0u, 0u);
+        const int sw0 = sl * L.SL;
+        // words q-1 .. q+4 of a tile row, q (0 mod 4) the word of pixels
+        // xs, xs+1: one 16-byte load and two 4-byte ones
+        const int q = (xs + kDOff) / 2;
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh) {
+          // tile row of image row h0+r0+1-kh (rows gid); rows gid+8 the next
+          const int base = tig < 3 ? sw0 + lane_plane + (r0 + 2 - kh) * L.RWw : zero_w;
+          uint32_t x0[6], x1[6];
+          lds128(x0 + 1, words + base + q);
+          x0[0] = words[base + q - 1];
+          x0[5] = words[base + q + 4];
+          lds128(x1 + 1, words + base + lane_row + q);
+          x1[0] = words[base + lane_row + q - 1];
+          x1[5] = words[base + lane_row + q + 4];
+          uint2 bl[2];
+          if (use_rest)
+#pragma unroll
+            for (int par = 0; par < 2; ++par)
+              bl[par] = gid < 3 ? bt[72 + ((kt * 3 + kh) * 2 + par) * 4 + tig] : make_uint2(0u, 0u);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            // pixel pair k: words q+k (pixels xs+2k, +1), q+k-1 and q+k+1
+            const uint32_t ae[4] = {x0[k + 1], x1[k + 1], x0[k], x1[k]};
+            const uint32_t ao[4] = {x0[k + 1], x1[k + 1], x0[k + 2], x1[k + 2]};
+            mma_bf16(acc[k][0], ae, bh[kh][0].x, bh[kh][0].y);
+            mma_bf16(acc[k][1], ao, bh[kh][1].x, bh[kh][1].y);
+            if (use_rest) {
+              mma_bf16(acc[k][0], ae, bl[0].x, bl[0].y);
+              mma_bf16(acc[k][1], ao, bl[1].x, bl[1].y);
+            }
+          }
+        }
+        finish(t - 1, Phase<(P + 2) % 3>());  // dd frame t-1
+      } else {
+#pragma unroll
+        for (int i = 0; i < kDFp; ++i) {
+          const int q = tid + i * kThreads;
+          if (q >= kDR * CW) continue;
+          const int r = q / CW, x = q - r * CW;
+          const T* base = slot + (r + 2) * RWe + x + kDOff + 1;  // image row h0+r+1, column x+1
+          float a0 = fa[i][0], a1 = fa[i][1], a2 = 0.f;
+#pragma unroll
+          for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+            for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+              for (int co = 0; co < 3; ++co) {
+                const float v = to_f<T>(base[co * PSe - kh * RWe - kw]);
+                a0 += sw[widx(0, kh, kw, 3, co)] * v;
+                a1 += sw[widx(1, kh, kw, 3, co)] * v;
+                a2 += sw[widx(2, kh, kw, 3, co)] * v;
+              }
+          if (t >= 1 && r < nr)
+            dd[((size_t)b * F + t - 1) * HW + (size_t)(h0 + r) * W + cx0 + x] = from_f<T>(a0);
+          fa[i][0] = a1;
+          fa[i][1] = a2;
+        }
+      }
+      __syncwarp();  // the warp is done with slot sl
+      if (lane == 0) mbar_arrive(&empty[sl]);
+    };
+    for (int t = 0; t < F; t += 3) {
+      frame(t, Phase<0>());
+      if (t + 1 < F) frame(t + 1, Phase<1>());
+      if (t + 2 < F) frame(t + 2, Phase<2>());
+    }
+
+    if (need_d) {  // dd frame F-1
+      if constexpr (kBf16) {
+        const int c = (F - 1) % 3;
+        if (c == 0) finish(F - 1, Phase<0>());
+        else if (c == 1) finish(F - 1, Phase<1>());
+        else finish(F - 1, Phase<2>());
+      } else {
+#pragma unroll
+        for (int i = 0; i < kDFp; ++i) {
+          const int q = tid + i * kThreads;
+          if (q >= kDR * CW) continue;
+          const int r = q / CW, x = q - r * CW;
+          if (r < nr)
+            dd[((size_t)b * F + F - 1) * HW + (size_t)(h0 + r) * W + cx0 + x] =
+                from_f<T>(fa[i][0]);
+        }
+      }
+    }
+  }
+
+  if constexpr (kS != 0) {
+    // the static input at (h, w) reaches every frame: per neighbour, the
+    // temporal sums of ȳ over the frames each kt tap is valid for
+    __syncthreads();
+    const float* sums = reinterpret_cast<const float*>(smem + L.sums);
+    const T* f0 = reinterpret_cast<const T*>(smem + L.f0);
+    const T* fl = ring + (size_t)((F - 1) % kDRing) * SLe;
+    for (int q = tid; q < nr * CW; q += kDThreads) {
+
+      const int r = q / CW, x = q - r * CW;
+      const int e0 = (r + 2) * RWe + x + kDOff + 1;
+      float acc3[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+          for (int co = 0; co < 3; ++co) {
+            const int e = e0 + co * PSe - kh * RWe - kw;
+            const float s_all = sums[e];
+            const float t0 = s_all - to_f<T>(f0[e]);  // kt=0: t >= 1
+            const float t2 = s_all - to_f<T>(fl[e]);  // kt=2: t <= F-2
+#pragma unroll
+            for (int ci = 0; ci < 3; ++ci)
+              acc3[ci] += sw[widx(0, kh, kw, ci, co)] * t0 +
+                          sw[widx(1, kh, kw, ci, co)] * s_all +
+                          sw[widx(2, kh, kw, ci, co)] * t2;
+          }
+      T* dsp = ds + (((size_t)b * H + h0 + r) * W + cx0 + x) * 3;
+#pragma unroll
+      for (int ci = 0; ci < 3; ++ci) dsp[ci] = from_f<T>(acc3[ci]);
+    }
+  }
+}
+
 template <typename T>
 int launch_fwd(const void* st, const void* dy, const float* wb, void* y, int B,
                int F, int H, int W, cudaStream_t stream) {
@@ -776,14 +1145,32 @@ int launch_fwd(const void* st, const void* dy, const float* wb, void* y, int B,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int kS>
+int launch_dgrad_s(const T* g, const float* wb, T* ds, T* dd, int B, int F,
+                   int H, int W, cudaStream_t stream) {
+  const size_t smem = DgradSmem<T>(W, kS != 0).total;
+  auto kern = hal_dgrad_kernel<T, kS>;
+  // the static weights' 1.3 KB count toward the 48 KB default too
+  int rc = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != 0) return rc;
+  constexpr int V = 16 / sizeof(T);
+  const int vec_in = W % V == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const int vec_out = W % 8 == 0 && reinterpret_cast<uintptr_t>(dd) % 16 == 0;
+  const int bands = (H + kDR - 1) / kDR * ((W + kDCW - 1) / kDCW);
+  kern<<<dim3(bands, B), kDThreads, smem, stream>>>(g, wb, ds, dd, F, H, W,
+                                                     vec_in, vec_out);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_dgrad(const void* g, const float* wb, void* ds, void* dd, int B,
                  int F, int H, int W, cudaStream_t stream) {
-  const dim3 grid((H * W + kThreads - 1) / kThreads, B);
-  hal_dgrad_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(g), wb, static_cast<T*>(ds), static_cast<T*>(dd),
-      F, H, W);
-  return (int)cudaGetLastError();
+  const T* gp = static_cast<const T*>(g);
+  T* sp = static_cast<T*>(ds);
+  T* dp = static_cast<T*>(dd);
+  return ds != nullptr ? launch_dgrad_s<T, 1>(gp, wb, sp, dp, B, F, H, W, stream)
+                       : launch_dgrad_s<T, 0>(gp, wb, sp, dp, B, F, H, W, stream);
 }
 
 template <typename T>
