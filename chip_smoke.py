@@ -8,7 +8,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              ptxas's registers and spill bytes for each kernel.
 2. check   — each hallucinator kernel against its plain PyTorch version on
              the card: fp32 at a small shape (B=4, F=8, 32x32; max error
-             <= 1e-5 of the output's largest |value|) and bf16 at the S2D-MTT
+             <= 1e-5 of the output's largest |value|; ``hal_fwd`` also on
+             inputs one element past a 16-byte boundary, B=2, F=3, 17x112,
+             in fp32 and in bf16) and bf16 at the S2D-MTT
              shape (B=500, F=16, 112x112) against the plain version computed
              in fp32 from the same bf16 inputs (every element within one bf16
              ulp, 2^-7 relative, plus 1e-5 of the largest |value| for the
@@ -290,7 +292,7 @@ def kernel_name(mangled):
         for code, short in types.items():
             if tail.startswith(code):
                 args.append(short)
-                c = re.match(r"Li(\d+)E", tail[len(code):])
+                c = re.match(r"L[ib](\d+)E", tail[len(code):])
                 if c:
                     args.append(c.group(1))
         return f"{name}<{','.join(args)}>" if args else name
@@ -321,6 +323,25 @@ def phase_build():
           "nvcc_seconds": secs, "ptxas": ptxas_table(log)})
 
 
+def check_fwd_unaligned():
+    """hal_fwd on a static and a dynamic one element past a 16-byte boundary
+    (staged element by element), fp32 and bf16, at a width of 112."""
+    b, f, h, w = 2, 3, 17, 112
+    for dtype, seed in ((torch.float32, 11), (torch.bfloat16, 15)):
+        st = randn((1 + b * h * w * 3,), dtype, seed)[1:].view(b, h, w, 3)
+        dy = randn((1 + b * f * h * w,), dtype, seed + 1)[1:].view(b, f, h, w, 1)
+        assert st.data_ptr() % 16 != 0 and dy.data_ptr() % 16 != 0
+        wt = randn((3, 4, 3, 3, 3), dtype, seed + 2)
+        bs = randn((3,), dtype, seed + 3)
+        y = hc.hal_fwd(st, dy, wt, bs)
+        ref = hc.hal_fwd_plain(st.float(), dy.float(), wt.float(), bs.float())
+        if dtype == torch.float32:
+            check_max("hal_fwd fp32 unaligned", y, ref, 1e-5)
+        else:
+            check_bf16("hal_fwd bf16 unaligned", y, ref)
+    return (b, f, h, w)
+
+
 def phase_check():
     """Correctness at both shapes, then times at the slice's shape."""
     small = (4, 8, 32, 32)
@@ -344,7 +365,8 @@ def phase_check():
     check_max("hal_wgrad dk fp32", dk, rk, 1e-5)
     check_max("hal_wgrad db fp32", db, rb, 1e-5)
     check_wgrad_deterministic("fp32", dk, db, g, st, dy)
-    emit({"phase": "check_fp32", "shape": small, "ok": True})
+    emit({"phase": "check_fp32", "shape": small,
+          "hal_fwd_unaligned_shape": check_fwd_unaligned(), "ok": True})
 
     b, f, h, w = SLICE["num_classes"] * SLICE["syn_steps"], SLICE["frames"], \
         SLICE["im"], SLICE["im"]

@@ -1,19 +1,21 @@
-"""Where ``hal_dgrad``'s and ``s2d2_unpack``'s time goes, by ablation, on
-one NVIDIA GPU.
+"""Where ``hal_dgrad``'s, ``s2d2_unpack``'s and ``hal_fwd``'s time goes, by
+ablation, on one NVIDIA GPU.
 
-    python3 scripts/ablate_hal_dgrad.py [--kernel hal_dgrad|s2d2_unpack]
+    python3 scripts/ablate_hal_dgrad.py [--kernel hal_dgrad|s2d2_unpack|hal_fwd]
 
 Builds variants of ``video_distillation_torch/csrc/hal_conv.cu`` (bf16
-``hal_dgrad``, dd only, as the S2D-MTT slice runs it) and of
-``csrc/s2d2_move.cu`` (``s2d2_unpack``), each with one part cut out or one
-setting changed by a text substitution (a cut variant's results are wrong;
-only its time counts), into ``video_distillation_torch/_build/ablate/`` with
-nvcc, one process per variant in parallel. Then times each through its C
-interface at the slice's shapes: ``hal_dgrad`` on ȳ (B=500, 3, F, 112, 112)
-with F = 16 and 1 (the F=1 time is the per-block fixed cost plus one
-frame), ``s2d2_unpack`` on the packed (50, 16, 60, 60, 36) cotangent.
-Prints one JSON line per variant, then the card's name and power limit.
-About a minute on an H100, most of it the builds.
+``hal_dgrad``, dd only, as the S2D-MTT slice runs it, and bf16 ``hal_fwd``)
+and of ``csrc/s2d2_move.cu`` (``s2d2_unpack``), each with one part cut out
+or one setting changed by a text substitution (a cut variant's results are
+wrong; only its time counts), into ``video_distillation_torch/_build/ablate/``
+with nvcc, one process per variant in parallel. Then times each through its
+C interface at the slice's shapes: ``hal_dgrad`` on ȳ (B=500, 3, F, 112, 112)
+and ``hal_fwd`` on static (500, 112, 112, 3) and dynamic (500, F, 112, 112,
+1), each with F = 16 and 1 (the F=1 time is the per-block fixed cost plus
+one frame), ``s2d2_unpack`` on the packed (50, 16, 60, 60, 36) cotangent.
+Prints one JSON line per variant (``hal_fwd``'s with ptxas's registers and
+spill bytes for the bf16 kernel), then the card's name and power limit.
+About a minute a kernel on an H100, most of it the parallel builds.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -91,6 +94,45 @@ DGRAD_SETTINGS = {  # settings changed before the kernel's marker
     "three_blocks_an_sm": [("__launch_bounds__(kDThreads, kS ? 1 : 2)",
                             "__launch_bounds__(kDThreads, kS ? 1 : 3)")],
 }
+# hal_fwd: each text must occur once in the whole source
+FWD = {
+    "full": [],
+    "no_stores": [  # the sums stay live, but almost never leave
+        ("    if (!owner) return;\n    T* p = yp",
+         "    if (!owner || a[0][0] != -12345.f) return;\n    T* p = yp")],
+    "no_dynamic_loads": [  # the window made in registers, no shared loads
+        ("      load_win(win + kh * RS, v);",
+         "      for (int j = 0; j < V + 2; ++j) v[j] = __uint_as_float(0x3f800000u + e0 + kh + j);")],
+    "no_staging": [  # only frames 0-2 are copied into the ring
+        ("      if (t + 2 < F) stage(t + 2, (P + 2) % 3);\n", "")],
+    "no_dynamic_ffma": [  # a sum a pixel and tap column instead of 27 FFMAs
+        ("            nx[co][i] += fw(widx(0, kh, kw, 3, co)) * v[i + kw];\n"
+         "            cu[co][i] += fw(widx(1, kh, kw, 3, co)) * v[i + kw];\n"
+         "            pv[co][i] += fw(widx(2, kh, kw, 3, co)) * v[i + kw];",
+         "            if (co == 0) cu[0][i] += v[i + kw];")],
+    "no_static": [  # neither the static's staging nor its stencils
+        ("const int n3 = ncols * 3,", "const int n3 = 0,"),
+        ("for (int ci = 0; ci < 3; ++ci) {\n#pragma unroll\n      for (int kh",
+         "for (int ci = 0; ci < 0; ++ci) {\n#pragma unroll\n      for (int kh")],
+    "weights_in_shared_memory": [  # the parent's weight path: a shared load an FFMA operand
+        ("__device__ __forceinline__ float fw(int i) { return c_fwd_w[i]; }",
+         "__shared__ float sw_fwd[kNWB];\n"
+         "__device__ __forceinline__ float fw(int i) { return sw_fwd[i]; }"),
+        ("  // zeros: what lies outside the image stays so\n",
+         "  for (int q = tid; q < kNWB; q += nt) sw_fwd[q] = c_fwd_w[q];\n")],
+    "base_in_registers": [  # base kept in registers, not read from the record
+        ("    read_rec(0, nx);",
+         "    for (int co = 0; co < 3; ++co)\n"
+         "      for (int i = 0; i < V; ++i) nx[co][i] = base[co][i];")],
+    "four_pixels_a_thread": [  # bf16: runs of 4 pixels, 3 blocks an SM
+        ("static constexpr int V = sizeof(T) == 2 ? 8 : 4;", "static constexpr int V = 4;"),
+        ("__launch_bounds__(kFThreads, 2)\nhal_fwd_kernel",
+         "__launch_bounds__(kFThreads, 3)\nhal_fwd_kernel")],
+    "one_block_an_sm": [("__launch_bounds__(kFThreads, 2)\nhal_fwd_kernel",
+                         "__launch_bounds__(kFThreads, 1)\nhal_fwd_kernel")],
+    "three_blocks_an_sm": [("__launch_bounds__(kFThreads, 2)\nhal_fwd_kernel",
+                            "__launch_bounds__(kFThreads, 3)\nhal_fwd_kernel")],
+}
 UNPACK_MARK = "s2d2_unpack_kernel(const T* __restrict__ g"
 UNPACK = {
     "full": [],
@@ -129,6 +171,18 @@ def variant_sources(src, mark, cuts, settings):
     return texts
 
 
+def whole_source_variants(src, variants):
+    texts = {}
+    for name, subs in variants.items():
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: {old!r} is not in the source once")
+            text = text.replace(old, new)
+        texts[name] = text
+    return texts
+
+
 def build_variants(texts, tag, out_dir):
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
@@ -152,7 +206,22 @@ def build_variants(texts, tag, out_dir):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {tag} {name}:\n{logs[name]}")
         libs[name] = ctypes.CDLL(so)
-    return libs
+    return libs, logs
+
+
+def ptxas(log, entry):
+    """ptxas's registers and spill bytes (stores + loads) for the kernel
+    whose mangled name contains ``entry``, from an nvcc -Xptxas -v log."""
+    out, cur = {}, False
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = entry in m.group(1)
+        elif cur and (m := re.search(r"Used (\d+) registers", ln)):
+            out["registers"] = int(m.group(1))
+        elif cur and "spill" in ln:
+            out["spill_bytes"] = sum(map(int, re.findall(r"(\d+) bytes spill", ln)))
+    return out
 
 
 def cuda_ms(fn, iters=20):
@@ -179,8 +248,8 @@ def checked(rc, name):
 
 def ablate_dgrad(out_dir):
     src = (build.CSRC_DIR / "hal_conv.cu").read_text()
-    libs = build_variants(variant_sources(src, DGRAD_MARK, DGRAD, DGRAD_SETTINGS),
-                          "dgrad", out_dir)
+    libs, _ = build_variants(variant_sources(src, DGRAD_MARK, DGRAD, DGRAD_SETTINGS),
+                             "dgrad", out_dir)
     b, f, h, w = 500, 16, 112, 112
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = torch.randn(b, 3, f, h, w, generator=gen, device="cuda").bfloat16()
@@ -202,8 +271,8 @@ def ablate_dgrad(out_dir):
 
 def ablate_unpack(out_dir):
     src = (build.CSRC_DIR / "s2d2_move.cu").read_text()
-    libs = build_variants(variant_sources(src, UNPACK_MARK, UNPACK, UNPACK_SETTINGS),
-                          "unpack", out_dir)
+    libs, _ = build_variants(variant_sources(src, UNPACK_MARK, UNPACK, UNPACK_SETTINGS),
+                             "unpack", out_dir)
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = torch.randn(50, 16, 60, 60, 36, generator=gen, device="cuda").bfloat16()
     out = torch.empty(50, 16, 112, 112, 3, device="cuda", dtype=torch.bfloat16)
@@ -216,19 +285,45 @@ def ablate_unpack(out_dir):
               flush=True)
 
 
+def ablate_fwd(out_dir):
+    src = (build.CSRC_DIR / "hal_conv.cu").read_text()
+    libs, logs = build_variants(whole_source_variants(src, FWD), "fwd", out_dir)
+    b, f, h, w = 500, 16, 112, 112
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = torch.randn(b, h, w, 3, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(b, f, h, w, 1, generator=gen, device="cuda").bfloat16()
+    wb = torch.randn(327, generator=gen, device="cuda")
+    y = torch.empty(b, 3, f, h, w, device="cuda", dtype=torch.bfloat16)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, lib in libs.items():
+        lib.hal_fwd.argtypes = [i, p, p, p, p, i, i, i, i, p]
+
+        def call(frames, lib=lib):
+            # frames < f reads the first frames of each sample's dynamic
+            checked(lib.hal_fwd(1, st.data_ptr(), dy.data_ptr(), wb.data_ptr(),
+                                y.data_ptr(), b, frames, h, w, stream()), name)
+        print(json.dumps({"kernel": "hal_fwd", "variant": name,
+                          **{f"ms_F{n}": cuda_ms(lambda: call(n)) for n in (f, 1)},
+                          # the bf16 instantiation for 16-byte rows
+                          **ptxas(logs[name], "hal_fwd_kernelI13__nv_bfloat16Lb1E")}),
+              flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=["hal_dgrad", "s2d2_unpack"],
-                    action="append", help="default: both")
+    ap.add_argument("--kernel", choices=["hal_dgrad", "s2d2_unpack", "hal_fwd"],
+                    action="append", help="default: all three")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("ablate_hal_dgrad.py: needs a CUDA device")
     out_dir = str(build.BUILD_DIR / "ablate")
-    kernels = args.kernel or ["hal_dgrad", "s2d2_unpack"]
+    kernels = args.kernel or ["hal_dgrad", "s2d2_unpack", "hal_fwd"]
     if "hal_dgrad" in kernels:
         ablate_dgrad(out_dir)
     if "s2d2_unpack" in kernels:
         ablate_unpack(out_dir)
+    if "hal_fwd" in kernels:
+        ablate_fwd(out_dir)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)

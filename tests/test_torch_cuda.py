@@ -237,6 +237,21 @@ def test_dgrad_takes_an_unaligned_input(cuda, dtype):
     close(dd, rd)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_takes_an_unaligned_input(cuda, dtype):
+    """Static and dynamic one element past a 16-byte boundary: hal_fwd
+    stages them element by element, within the usual tolerance of the plain
+    version."""
+    b, f, h, w = 2, 3, 17, 112
+    st = _randn((1 + b * h * w * 3,), dtype, 11)[1:].view(b, h, w, 3)
+    dy = _randn((1 + b * f * h * w,), dtype, 12)[1:].view(b, f, h, w, 1)
+    assert st.data_ptr() % 16 != 0 and dy.data_ptr() % 16 != 0
+    wt, bs = _randn((3, 4, 3, 3, 3), dtype, 13), _randn((3,), dtype, 14)
+    ref = hc.hal_fwd_plain(st.float(), dy.float(), wt.float(), bs.float())
+    close = _close_fp32 if dtype == torch.float32 else _close_bf16
+    close(hc.hal_fwd(st, dy, wt, bs), ref)
+
+
 def _trio_inputs(n, o, g, dtype, seed, ties=False):
     y = _randn((n, 4 * o), dtype, seed)
     if ties:  # round so that phases tie often

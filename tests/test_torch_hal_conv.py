@@ -48,10 +48,15 @@ def _t(a, grad=False):
     return torch.tensor(np.asarray(a), requires_grad=grad)
 
 
-def test_forward_matches_pallas_and_flax():
-    hal, params, port, static, dynamic, _ = _inputs(0)
+# the forward kernel's edge cases on the card: one frame at an odd width,
+# rows that are not a multiple of 16 bytes (staged element by element, a
+# ragged last chunk), H not a multiple of its 16-row band
+@pytest.mark.parametrize("shape", [(B, F, H, W), (2, 1, 7, 9), (1, 2, 16, 113),
+                                   (2, 3, 13, 112)])
+def test_forward_matches_pallas_and_flax(shape):
+    hal, params, port, static, dynamic, _ = _inputs(0, shape=shape)
     out = hc.hal_conv(_t(static), _t(dynamic), port["weight"], port["bias"])
-    assert out.shape == (B, F, H, W, 3)
+    assert out.shape == (*shape, 3)
     ref_flax = hal.apply({"params": params}, static, dynamic)
     ref_pallas = hal_vjp.hal_conv(jnp.asarray(static), jnp.asarray(dynamic),
                                   params["kernel"], params["bias"])

@@ -17,19 +17,39 @@
 // 0.02 ms on the tensor cores (989 TFLOP/s dense bf16), so in bf16 the
 // bytes bound them.
 //
-// hal_fwd:
-//  * One thread per output pixel (b, h, w), looping over frames. Neighbouring
-//    threads hold neighbouring w, so every global load and store is
-//    coalesced and the 3x3 halo re-reads hit L1.
-//  * The static channels are constant in time, so their temporal taps
-//    collapse to three 2-D stencils (all taps, the kt=0 tap, the kt=2 tap),
-//    computed once per pixel and reused for all F frames: ~19 GFLOP instead
-//    of the naive conv's 65.
-//  * The dynamic channel streams through time: each frame's 3x3
-//    neighbourhood is read once and scattered into the three output frames
-//    it feeds, so a thread keeps 3 partial sums per channel, not a 27-value
-//    window.
-//  * Weights sit in shared memory (one broadcast read per FMA operand).
+// hal_fwd (its section is the last; H100 80GB HBM3, 700 W):
+//  * What binds it: instruction issue. The dynamic taps are 81 FFMAs a
+//    pixel and frame (8.1 G at the slice's bf16 shape), 0.24 ms at the data
+//    sheet's 67 TFLOP/s; the static's three stencils add 1.5 G.
+//    The first design (a thread a pixel, nine 2-byte loads a frame behind
+//    bounds checks, a shared-memory load for each FFMA's weight) spent its
+//    issue slots on everything but FFMAs: 1.31-1.34 ms, 19% of the byte
+//    bound.
+//  * Weights: copied to __constant__ memory on the launch's stream before
+//    each launch; each FFMA takes its weight from the constant bank, with
+//    no load (from shared memory as before: +0.05 ms).
+//  * A thread owns a run of 8 neighbouring pixels of a row in bf16 (4 in
+//    fp32). A window row (10 values) is one 16-byte and two 4-byte shared
+//    loads and feeds 216 FFMAs; an output frame leaves as one 16-byte
+//    store per channel plane.
+//  * A block owns 256 consecutive runs counted row-major over all samples'
+//    rows: 8 full warps, so the SM's four schedulers get equal shares at a
+//    width of 112 (14 runs a row), where blocks of whole rows held 7 warps
+//    and ran 0.542-0.546 ms against this one's 0.499-0.513.
+//  * The dynamic frames stream through a ring of three shared tiles, two
+//    frames ahead, with 16-byte cp.async copies from a list built once a
+//    block, behind one barrier a frame. Zero rows and columns (halos, and
+//    between two samples' rows) replace bounds checks in the tap loop.
+//  * The static's three 2-D stencils (kt = 0, 1, 2 weights) are taken once
+//    per pixel from its rows staged as they lie in memory; base and the
+//    kt=2 stencil wait in a per-thread record in shared memory (kept in
+//    registers they spill). On the tensor cores instead (bf16 hi + lo
+//    weights, columns shuffled to each run's lane) they ran 0.68 ms. The
+//    3-frame running sums stay in registers, the frame loop unrolled by
+//    three.
+//  * Where the rest goes (scripts/ablate_hal_dgrad.py --kernel hal_fwd):
+//    0.506 ms in all, 0.339 without the dynamic FFMAs, 0.411 without the
+//    static term, 0.476 without the stores or the frame copies.
 // hal_wgrad and hal_dgrad (their sections below): a block per band of rows
 // of a sample streams the frames through shared memory with cp.async, so
 // each input is read once; in bf16 the taps run on the tensor cores
@@ -65,111 +85,6 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
-}
-
-__device__ __forceinline__ void load_weights(const float* __restrict__ wb, float* sw) {
-  for (int i = threadIdx.x; i < kNWB; i += blockDim.x) sw[i] = wb[i];
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// forward: y[b, co, t, h, w]
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-hal_fwd_kernel(const T* __restrict__ st, const T* __restrict__ dy,
-               const float* __restrict__ wb, T* __restrict__ y,
-               int F, int H, int W) {
-  __shared__ float sw[kNWB];
-  load_weights(wb, sw);
-  const int HW = H * W;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= HW) return;
-  const size_t b = blockIdx.y;
-  const int h = p / W, x = p - h * W;
-
-  // static part: three collapsed 2-D stencils per output channel
-  float uf[3] = {0.f, 0.f, 0.f}, u0[3] = {0.f, 0.f, 0.f}, u2[3] = {0.f, 0.f, 0.f};
-  const T* sb = st + b * HW * 3;
-#pragma unroll
-  for (int kh = 0; kh < 3; ++kh) {
-    const int hh = h + kh - 1;
-#pragma unroll
-    for (int kw = 0; kw < 3; ++kw) {
-      const int ww = x + kw - 1;
-      if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
-      const T* sp = sb + ((size_t)hh * W + ww) * 3;
-#pragma unroll
-      for (int ci = 0; ci < 3; ++ci) {
-        const float v = to_f<T>(sp[ci]);
-#pragma unroll
-        for (int co = 0; co < 3; ++co) {
-          const float w0 = sw[widx(0, kh, kw, ci, co)];
-          const float w1 = sw[widx(1, kh, kw, ci, co)];
-          const float w2 = sw[widx(2, kh, kw, ci, co)];
-          uf[co] += (w0 + w1 + w2) * v;
-          u0[co] += w0 * v;
-          u2[co] += w2 * v;
-        }
-      }
-    }
-  }
-  // frame t's static term: u_full + bias, minus the kt=0 tap at t=0 (no
-  // frame t-1) and the kt=2 tap at t=F-1 (no frame t+1)
-  float base_mid[3], base_first[3], base_last[3], base_one[3];
-#pragma unroll
-  for (int co = 0; co < 3; ++co) {
-    base_mid[co] = uf[co] + sw[kNW + co];
-    base_first[co] = base_mid[co] - u0[co];
-    base_last[co] = base_mid[co] - u2[co];
-    base_one[co] = base_first[co] - u2[co];
-  }
-
-  // dynamic part: frame t's neighbourhood feeds outputs t+1 (kt=0),
-  // t (kt=1) and t-1 (kt=2); after frame t, output t-1 is complete
-  const T* db = dy + b * (size_t)F * HW;
-  const size_t plane = (size_t)F * HW;
-  T* yb = y + b * 3 * plane;
-  float a_prev[3] = {0.f, 0.f, 0.f}, a_cur[3];
-#pragma unroll
-  for (int co = 0; co < 3; ++co)
-    a_cur[co] = F == 1 ? base_one[co] : base_first[co];
-  for (int t = 0; t < F; ++t) {
-    float a_next[3];
-#pragma unroll
-    for (int co = 0; co < 3; ++co)
-      a_next[co] = t + 1 >= F ? 0.f : (t + 2 == F ? base_last[co] : base_mid[co]);
-    const T* df = db + (size_t)t * HW;
-#pragma unroll
-    for (int kh = 0; kh < 3; ++kh) {
-      const int hh = h + kh - 1;
-#pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        const int ww = x + kw - 1;
-        if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;
-        const float v = to_f<T>(df[hh * W + ww]);
-#pragma unroll
-        for (int co = 0; co < 3; ++co) {
-          a_next[co] += sw[widx(0, kh, kw, 3, co)] * v;
-          a_cur[co] += sw[widx(1, kh, kw, 3, co)] * v;
-          a_prev[co] += sw[widx(2, kh, kw, 3, co)] * v;
-        }
-      }
-    }
-    if (t >= 1) {
-#pragma unroll
-      for (int co = 0; co < 3; ++co)
-        yb[co * plane + (size_t)(t - 1) * HW + p] = from_f<T>(a_prev[co]);
-    }
-#pragma unroll
-    for (int co = 0; co < 3; ++co) {
-      a_prev[co] = a_cur[co];
-      a_cur[co] = a_next[co];
-    }
-  }
-#pragma unroll
-  for (int co = 0; co < 3; ++co)
-    yb[co * plane + (size_t)(F - 1) * HW + p] = from_f<T>(a_prev[co]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1135,13 +1050,385 @@ hal_dgrad_kernel(const T* __restrict__ g, const float* __restrict__ wb,
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward: y[b, co, t, h, w], the design in the note at the top of the file
+// ---------------------------------------------------------------------------
+constexpr int kFCW = 128;      // most columns a forward block
+constexpr int kFSlots = 3;     // dynamic frames in shared memory: t, t+1, t+2
+constexpr int kFThreads = 256; // most threads a forward block
+
+// The weights and biases of the launch in flight, copied from the caller's
+// buffer on the launch's stream just before it: each FFMA takes its weight
+// from the constant bank, with no load. Forward launches on two streams must
+// therefore not overlap.
+__constant__ float c_fwd_w[kNWB];
+
+__device__ __forceinline__ float fw(int i) { return c_fwd_w[i]; }
+
+// Work split: a thread owns V neighbouring pixels of a row (a "run"), and
+// a column band's runs are numbered row-major over all samples' rows; a
+// block owns nt consecutive runs. Blocks of 8 full warps at any width keep
+// the SM's four schedulers equally busy (whole rows of 112 pixels would
+// give 7). A block's runs span at most rows_max image rows, which may
+// belong to more than one sample.
+//
+// Shared memory, the same layout on the host and the device: the ring of
+// kFSlots dynamic tiles at 0, then the static's rows as they lie in memory
+// (pixel-interleaved), whose space holds a record a thread (its pixels'
+// base and u2) once the static stencils are taken. A tile row holds one
+// image row: the block's rows in order, each sample's rows between a zero
+// row above and below (its halo rows outside the image), so that a window
+// never reaches into another sample. Element C + x of a tile row holds
+// column cx0 + x, x in [-C, TPR*V + C), C being a 16-byte copy's elements.
+// Tile rows are 128 bytes longer than a band's pixels, so that the window
+// loads of a warp's lanes, consecutive runs of consecutive rows, fall in
+// consecutive banks (no conflicts). A static row holds the same columns,
+// three elements each. Last, the list of a frame's 16-byte copies.
+template <typename T>
+struct FwdSmem {
+  static constexpr int C = 16 / sizeof(T);          // elements a 16-byte copy
+  static constexpr int V = sizeof(T) == 2 ? 8 : 4;  // pixels a run
+  // a thread's record: base then u2, 3 x V floats each; records 6V + 4
+  // words apart keep 8 lanes' 16-byte loads in 8 different bank quads
+  static constexpr int kRec = 6 * V + 4;
+  int TPR, nt, rows_max, Rt, RS, PS, SR;  // runs a row, threads; rows, tile rows; elements
+  size_t stat, zero, list, total;          // byte offsets; zeros end at zero
+  __host__ __device__ FwdSmem(int H, int W) {
+    TPR = ((W < kFCW ? W : kFCW) + V - 1) / V;
+    nt = 32 * TPR < kFThreads ? 32 * TPR : kFThreads;
+    rows_max = (nt - 1) / TPR + 2;
+    int samples = (rows_max - 1) / H + 2;
+    samples = samples < rows_max ? samples : rows_max;
+    Rt = rows_max + 2 * samples;
+    RS = TPR * V + 128 / (int)sizeof(T);
+    PS = Rt * RS;
+    SR = (TPR * V + 2 * C) * 3;
+    stat = (size_t)kFSlots * PS * sizeof(T);
+    const size_t rows = (size_t)Rt * SR * sizeof(T);
+    const size_t recs = (size_t)kRec * nt * sizeof(float);
+    zero = stat + rows;
+    list = stat + (rows > recs ? rows : recs);
+    // a frame's 16-byte copies: rows_max + 2 image rows of at most TPR*V + 2C columns
+    total = list + (size_t)(rows_max + 2) * ((TPR * V + 2 * C) / C) * sizeof(uint2);
+  }
+};
+
+// a window row in fp32: columns x-1 .. x+V around the thread's pixels
+// x .. x+V-1 at p (aligned to their size in shared memory)
+__device__ __forceinline__ void load_win(const __nv_bfloat16* p, float (&v)[10]) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(p);
+  float x[8];
+  unpack(*reinterpret_cast<const uint4*>(w), x);
+  v[0] = bf_hi(w[-1]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i + 1] = x[i];
+  v[9] = bf_lo(w[4]);
+}
+__device__ __forceinline__ void load_win(const __nv_bfloat16* p, float (&v)[6]) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(p);
+  const uint2 m = *reinterpret_cast<const uint2*>(w);
+  v[0] = bf_hi(w[-1]);
+  v[1] = bf_lo(m.x); v[2] = bf_hi(m.x); v[3] = bf_lo(m.y); v[4] = bf_hi(m.y);
+  v[5] = bf_lo(w[2]);
+}
+__device__ __forceinline__ void load_win(const float* p, float (&v)[6]) {
+  const float4 m = *reinterpret_cast<const float4*>(p);
+  v[0] = p[-1];
+  v[1] = m.x; v[2] = m.y; v[3] = m.z; v[4] = m.w;
+  v[5] = p[4];
+}
+
+// the thread's V values at p, rounded once, as one store
+__device__ __forceinline__ uint32_t bf2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ void store_px(__nv_bfloat16* p, const float (&x)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(bf2(x[0], x[1]), bf2(x[2], x[3]), bf2(x[4], x[5]), bf2(x[6], x[7]));
+}
+__device__ __forceinline__ void store_px(__nv_bfloat16* p, const float (&x)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(bf2(x[0], x[1]), bf2(x[2], x[3]));
+}
+__device__ __forceinline__ void store_px(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// kVec: the dynamic's rows are 16-byte multiples and start 16-byte aligned
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kFThreads, 2)
+hal_fwd_kernel(const T* __restrict__ st, const T* __restrict__ dy,
+               T* __restrict__ y, int B, int F, int H, int W, int vec_st,
+               int vec_out) {
+  using Layout = FwdSmem<T>;
+  constexpr int C = Layout::C, V = Layout::V, kRec = Layout::kRec;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(H, W);
+  const int TPR = L.TPR, RS = L.RS, PS = L.PS, SR = L.SR, nt = L.nt;
+  T* ring = reinterpret_cast<T*>(smem);
+  T* srows = reinterpret_cast<T*>(smem + L.stat);
+  const int tid = threadIdx.x;
+  const int ncb = (W + kFCW - 1) / kFCW;
+  const int cb = blockIdx.x % ncb, cx0 = cb * kFCW, CW = min(kFCW, W - cx0);
+  const size_t HW = (size_t)H * W;
+  // the block's runs k0 .. k0+nt-1 (of nk < 2^31), rows g_first .. g_last
+  // counted over all samples, samples bA .. bZ
+  const int nk = B * H * TPR, k0 = (int)(blockIdx.x / ncb) * nt;
+  const int g_first = k0 / TPR, g_last = (min(k0 + nt, nk) - 1) / TPR;
+  const int bA = g_first / H, bZ = g_last / H;
+  // this thread's run: row g (sample b, row h), runs c of the band; its
+  // window's top tile row (image row h-1) starts at element e0
+  const int k = k0 + tid;
+  const bool active = k < nk;
+  const int g = active ? k / TPR : g_first;
+  const int c = k - g * TPR, b = g / H, h = g - b * H;
+  const int e0 = (g - g_first + 2 * (b - bA)) * RS + C + V * c;
+
+  // zeros: what lies outside the image stays so
+  for (int q = tid; q < (int)(L.zero / 16); q += nt)
+    reinterpret_cast<uint4*>(smem)[q] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  // The image rows the block reads are n = 0 .. nrows-1, row g_first-1+n:
+  // its output rows and the rows above and below them, those of the first
+  // and the last sample only. Row n's sample is bA + db, its tile row
+  // n + 2 db, and -1 marks a row that is not read.
+  const int nrows = g_last - g_first + 3;
+  auto row_of = [&](int n, int& db, int& hh) {
+    const int gg = g_first - 1 + n;
+    if (gg < 0 || gg >= B * H) return -1;
+    const int bb = gg / H;
+    if ((n == 0 && bb != bA) || (n == nrows - 1 && bb != bZ)) return -1;
+    db = bb - bA;
+    hh = gg - bb * H;
+    return n + 2 * db;
+  };
+  const int xlo = max(cx0 - C, 0), xhi = min(cx0 + TPR * V + C, W), ncols = xhi - xlo;
+  const int col0 = C + xlo - cx0;  // tile element of column xlo
+  const T* dyA = dy + (size_t)bA * F * HW + xlo;
+  // kVec: the list of a frame's 16-byte copies, (source offset in a frame
+  // of dyA, tile offset), built once; ~0u marks a row that is not read
+  uint2* list = reinterpret_cast<uint2*>(smem + L.list);
+  const int per = ncols / C, nch = kVec ? nrows * per : 0;
+  for (int q = tid; q < nch; q += nt) {
+    const int n = q / per, cc = (q - n * per) * C;
+    int db, hh;
+    const int tr = row_of(n, db, hh);
+    list[q] = tr < 0 ? make_uint2(~0u, 0u)
+                     : make_uint2((uint32_t)(((size_t)db * F * H + hh) * W + cc),
+                                  (uint32_t)(tr * RS + col0 + cc));
+  }
+  __syncthreads();
+  // dynamic frame t into ring slot s: 16 bytes a cp.async from the list,
+  // else element by element (rows not 16-byte multiples, or an unaligned
+  // input)
+  auto stage = [&](int t, int s) {
+    T* slot = ring + s * PS;
+    const T* src = dyA + (size_t)t * HW;
+    if constexpr (kVec) {
+      for (int q = tid; q < nch; q += nt) {
+        const uint2 e = list[q];
+        if (e.x != ~0u) cp_async16(slot + e.y, src + e.x);
+      }
+    } else {
+      for (int q = tid; q < nrows * ncols; q += nt) {
+        const int n = q / ncols, cc = q - n * ncols;
+        int db, hh;
+        const int tr = row_of(n, db, hh);
+        if (tr >= 0) slot[tr * RS + col0 + cc] = src[((size_t)db * F * H + hh) * W + cc];
+      }
+    }
+  };
+  // the static's rows as they lie in memory, 16 bytes a cp.async where
+  // vec_st, else element by element; then frames 0 and 1
+  {
+    const T* sA = st + ((size_t)bA * HW + xlo) * 3;
+    const int n3 = ncols * 3, per3 = vec_st ? n3 / C : n3, step = vec_st ? C : 1;
+    for (int q = tid; q < nrows * per3; q += nt) {
+      const int n = q / per3, cc = (q - n * per3) * step;
+      int db, hh;
+      const int tr = row_of(n, db, hh);
+      if (tr < 0) continue;
+      T* d = srows + tr * SR + col0 * 3 + cc;
+      const T* sp = sA + ((size_t)db * H + hh) * W * 3 + cc;
+      if (vec_st) cp_async16(d, sp);
+      else *d = *sp;
+    }
+  }
+  cp_async_commit();
+  stage(0, 0);
+  if (F > 1) stage(1, 1);
+  cp_async_commit();
+  cp_async_wait<1>();  // the static's rows have landed
+  __syncthreads();
+
+  // the static part: the static's three 2-D stencils per output channel
+  // with the kt=0, 1 and 2 weights, once per pixel. Output frame t's
+  // static term is base = u0 + u1 + u2 + bias, less u0 at t=0 (no frame
+  // t-1) and less u2 at t=F-1 (no frame t+1). base and u2 wait in the
+  // thread's record in shared memory.
+  float acc[3][3][V];  // output frame t sums in acc[t % 3]
+  float base[3][V], u2[3][V];
+  if (active) {
+    float u0[3][V] = {}, u1[3][V] = {};
+#pragma unroll
+    for (int co = 0; co < 3; ++co)
+#pragma unroll
+      for (int i = 0; i < V; ++i) u2[co][i] = 0.f;
+    // the window's top row at column -1
+    const T* sw0 = srows + (e0 / RS) * SR + (C + V * c - 1) * 3;
+#pragma unroll 1
+    for (int ci = 0; ci < 3; ++ci) {
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+        float v[V + 2];
+#pragma unroll
+        for (int j = 0; j < V + 2; ++j) v[j] = to_f<T>(sw0[kh * SR + 3 * j + ci]);
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+          for (int co = 0; co < 3; ++co)
+#pragma unroll
+            for (int i = 0; i < V; ++i) {
+              u0[co][i] += fw(widx(0, kh, kw, ci, co)) * v[i + kw];
+              u1[co][i] += fw(widx(1, kh, kw, ci, co)) * v[i + kw];
+              u2[co][i] += fw(widx(2, kh, kw, ci, co)) * v[i + kw];
+            }
+      }
+    }
+#pragma unroll
+    for (int co = 0; co < 3; ++co)
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        base[co][i] = u0[co][i] + u1[co][i] + u2[co][i] + fw(kNW + co);
+        acc[0][co][i] = u1[co][i] + u2[co][i] + fw(kNW + co);
+        acc[1][co][i] = acc[2][co][i] = 0.f;
+      }
+  }
+  __syncthreads();  // the static rows are read: their space holds the records now
+  float* rec = reinterpret_cast<float*>(smem + L.stat) + tid * kRec;
+  if (active)
+#pragma unroll
+    for (int k4 = 0; k4 < 3 * V / 4; ++k4) {
+      const int co = 4 * k4 / V, i = 4 * k4 % V;
+      *reinterpret_cast<float4*>(rec + 4 * k4) =
+          make_float4(base[co][i], base[co][i + 1], base[co][i + 2], base[co][i + 3]);
+      *reinterpret_cast<float4*>(rec + 3 * V + 4 * k4) =
+          make_float4(u2[co][i], u2[co][i + 1], u2[co][i + 2], u2[co][i + 3]);
+    }
+  // the record's base (part 0) or u2 (part 1)
+  auto read_rec = [&](int part, float (&x)[3][V]) {
+#pragma unroll
+    for (int k4 = 0; k4 < 3 * V / 4; ++k4) {
+      const float4 q = *reinterpret_cast<const float4*>(rec + part * 3 * V + 4 * k4);
+      const int co = 4 * k4 / V, i = 4 * k4 % V;
+      x[co][i] = q.x; x[co][i + 1] = q.y; x[co][i + 2] = q.z; x[co][i + 3] = q.w;
+    }
+  };
+  if (F > 2) stage(2, 2);
+  cp_async_commit();
+
+  T* yp = y + ((size_t)b * 3 * F * H + h) * W + cx0 + V * c;
+  const size_t plane = (size_t)F * HW;
+  const bool owner = active && V * c < CW;
+  // output frame t's V pixels of the three planes
+  auto store = [&](int t, const float (&a)[3][V]) {
+    if (!owner) return;
+    T* p = yp + (size_t)t * HW;
+    if (vec_out) {
+#pragma unroll
+      for (int co = 0; co < 3; ++co) store_px(p + co * plane, a[co]);
+    } else {
+#pragma unroll
+      for (int co = 0; co < 3; ++co)
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          if (V * c + i < CW) p[co * plane + i] = from_f<T>(a[co][i]);
+    }
+  };
+
+  // the dynamic part: frame t (t % 3 == P, ring slot P) is the kt=0 tap of
+  // output t+1, the kt=1 tap of output t and the kt=2 tap of output t-1,
+  // which is then complete. At t=0 the kt=2 sums and at t=F-1 the kt=0
+  // sums go to outputs that do not exist and are never stored.
+  auto frame = [&](int t, auto phase) {
+    constexpr int P = decltype(phase)::value;
+    cp_async_wait<1>();
+    __syncthreads();  // frame t has landed; every thread is done with frame t-1
+    if (t >= 1) {  // frame t+2 into frame t-1's slot (frames 0-2 are in)
+      if (t + 2 < F) stage(t + 2, (P + 2) % 3);
+      cp_async_commit();
+    }
+    if (!active) return;
+    float(&nx)[3][V] = acc[(P + 1) % 3];
+    float(&cu)[3][V] = acc[P];
+    float(&pv)[3][V] = acc[(P + 2) % 3];
+    read_rec(0, nx);
+    const T* win = ring + P * PS + e0;
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      float v[V + 2];
+      load_win(win + kh * RS, v);
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+        for (int co = 0; co < 3; ++co)
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            nx[co][i] += fw(widx(0, kh, kw, 3, co)) * v[i + kw];
+            cu[co][i] += fw(widx(1, kh, kw, 3, co)) * v[i + kw];
+            pv[co][i] += fw(widx(2, kh, kw, 3, co)) * v[i + kw];
+          }
+    }
+    if (t >= 1) store(t - 1, pv);
+  };
+  for (int t = 0; t < F; t += 3) {
+    frame(t, Phase<0>());
+    if (t + 1 < F) frame(t + 1, Phase<1>());
+    if (t + 2 < F) frame(t + 2, Phase<2>());
+  }
+
+  // output F-1, less its missing kt=2 static tap
+  auto last = [&](float (&a)[3][V]) {
+    float x[3][V];
+    read_rec(1, x);
+#pragma unroll
+    for (int co = 0; co < 3; ++co)
+#pragma unroll
+      for (int i = 0; i < V; ++i) a[co][i] -= x[co][i];
+    store(F - 1, a);
+  };
+  if (active) {
+    const int s = (F - 1) % 3;
+    if (s == 0) last(acc[0]);
+    else if (s == 1) last(acc[1]);
+    else last(acc[2]);
+  }
+}
+
 template <typename T>
 int launch_fwd(const void* st, const void* dy, const float* wb, void* y, int B,
                int F, int H, int W, cudaStream_t stream) {
-  const dim3 grid((H * W + kThreads - 1) / kThreads, B);
-  hal_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(st), static_cast<const T*>(dy), wb,
-      static_cast<T*>(y), F, H, W);
+  int rc = (int)cudaMemcpyToSymbolAsync(c_fwd_w, wb, kNWB * sizeof(float), 0,
+                                        cudaMemcpyDeviceToDevice, stream);
+  if (rc != 0) return rc;
+  using Layout = FwdSmem<T>;
+  const Layout L(H, W);
+  const int vec_st = W % Layout::C == 0 && reinterpret_cast<uintptr_t>(st) % 16 == 0;
+  const bool vec_in = W % Layout::C == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  auto kern = vec_in ? hal_fwd_kernel<T, true> : hal_fwd_kernel<T, false>;
+  rc = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (rc != 0) return rc;
+  const int vec_out = W % Layout::V == 0 &&
+                      reinterpret_cast<uintptr_t>(y) % (Layout::V * sizeof(T)) == 0;
+  // runs are counted in 32 bits
+  const long long runs = (long long)B * H * L.TPR;
+  if (runs + L.nt >= 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long blocks = (runs + L.nt - 1) / L.nt * ((W + kFCW - 1) / kFCW);
+  kern<<<(unsigned)blocks, L.nt, L.total, stream>>>(
+      static_cast<const T*>(st), static_cast<const T*>(dy), static_cast<T*>(y),
+      B, F, H, W, vec_st, vec_out);
   return (int)cudaGetLastError();
 }
 
