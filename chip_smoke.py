@@ -53,10 +53,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              once per evaluation training step.
 6. check_fused — the fused no-grad hallucinator kernel (``ops.hal_fused``)
              against its plain version and against ``hal_fwd``, fp32, at
-             B=4, F=8, 32x32 and at the evaluation shape B=50, F=16,
-             112x112 (max error <= 1e-5 of the largest |value|), and timed
-             there beside its plain version, cuDNN's conv3d and ``hal_fwd``
-             in fp32 on the same inputs.
+             small shapes (B=4, F=8, 32x32; widths 13 and 113, which are
+             not multiples of 4; F = 1 and 2; H = 1; a batch whose runs end
+             inside a block) and at the evaluation shape B=50, F=16,
+             112x112 (max error <= 1e-5 of the largest |value|; bit-equal
+             across two calls), and timed there through its wrapper
+             (``ms``) and alone through its C interface on weights
+             flattened once (``kernel_ms``, 50 launches after warm-up),
+             beside its plain version, cuDNN's conv3d and ``hal_fwd`` in
+             fp32 on the same inputs (through its wrapper and alone).
 7. pipeline — the paper's pipeline at full width (ConvNet3D 64/128/128, 50
              classes, 112x112x16, synthetic data): the buffer driver
              (``drivers.buffer``) trains 1 expert for 3 epochs in bf16;
@@ -289,6 +294,8 @@ def kernel_name(mangled):
         if not name.endswith("_kernel"):
             continue
         tail, args = mangled[i:], []
+        if (b := re.match(r"ILb(\d)E", tail)):  # one bool template argument
+            return f"{name}<{b.group(1)}>"
         for code, short in types.items():
             if tail.startswith(code):
                 args.append(short)
@@ -730,15 +737,31 @@ def phase_check_first_stage():
     return out
 
 
+# hal_fused beside its plain version and hal_fwd at small shapes: widths
+# that are not a multiple of 4 (the kernel's element paths), F = 1 and 2,
+# H = 1, and a batch whose runs end inside a block
+FUSED_SMALL = [(4, 8, 32, 32), (2, 1, 9, 13), (1, 2, 16, 113), (3, 4, 1, 112),
+               (3, 5, 7, 20)]
+
+
+def c_ms(fn, name, iters=50):
+    """Device time of a C-interface launch (its cudaError_t checked) over
+    ``iters`` back-to-back calls after warm-up."""
+    def call():
+        hc._check_rc(fn(), name)
+    return cuda_ms(call, iters, warmup=3)
+
+
 def phase_check_fused():
-    """hal_fused against its plain version and hal_fwd (fp32) at a small
-    shape and at the evaluation shape; times at the evaluation shape."""
-    st, dy, wt, bs, _ = inputs(4, 8, 32, 32, torch.float32, 2)
-    y = hf.hal_fused(st, dy, wt, bs)
-    check_max("hal_fused fp32 small", y, hf.hal_fused_plain(st, dy, wt, bs),
-              1e-5)
-    check_max("hal_fused vs hal_fwd small", y,
-              hc.hal_fwd(st, dy, wt, bs).permute(0, 2, 3, 4, 1), 1e-5)
+    """hal_fused against its plain version and hal_fwd (fp32) at small
+    shapes and at the evaluation shape; times at the evaluation shape."""
+    for k, shape in enumerate(FUSED_SMALL):
+        st, dy, wt, bs, _ = inputs(*shape, torch.float32, 20 + k)
+        y = hf.hal_fused(st, dy, wt, bs)
+        check_max(f"hal_fused fp32 {shape}", y,
+                  hf.hal_fused_plain(st, dy, wt, bs), 1e-5)
+        check_max(f"hal_fused vs hal_fwd {shape}", y,
+                  hc.hal_fwd(st, dy, wt, bs).permute(0, 2, 3, 4, 1), 1e-5)
 
     b, f, h, w = EVAL_SHAPE
     st, dy, wt, bs, _ = inputs(b, f, h, w, torch.float32, 3)
@@ -747,8 +770,10 @@ def phase_check_fused():
                     hf.hal_fused_plain(st, dy, wt, bs), 1e-5)
     check_max("hal_fused vs hal_fwd eval shape", y,
               hc.hal_fwd(st, dy, wt, bs).permute(0, 2, 3, 4, 1), 1e-5)
+    if not torch.equal(y, hf.hal_fused(st, dy, wt, bs)):
+        raise AssertionError("hal_fused: two calls differ")
     del y
-    emit({"phase": "check_fused", "shapes": [(4, 8, 32, 32), EVAL_SHAPE],
+    emit({"phase": "check_fused", "shapes": [*FUSED_SMALL, EVAL_SHAPE],
           "max_abs_err": err, "ok": True})
 
     # the library call is cuDNN's conv3d on the materialised 4-channel input
@@ -763,19 +788,32 @@ def phase_check_fused():
     nbytes = 4 * b * hw * (3 + f + 3 * f) + 4 * 327
     flops = b * hw * (2 * 243 + f * (2 * 81 + 3))
     t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+    # the kernel alone: its C interface on weights flattened once, so the
+    # wrapper's checks, weight flattening and allocation are left out
+    wb = hc._flat_weights(wt, bs)
+    yk = torch.empty(b, 3, f, h, w, device="cuda")
+    ptrs = (st.data_ptr(), dy.data_ptr(), wb.data_ptr(), yk.data_ptr())
+    kernel_ms = c_ms(lambda: hf._lib().hal_fused(*ptrs, b, f, h, w, hc._stream()),
+                     "hal_fused")
     row = {"name": "hal_fused", "route": "cuda", "source": FUSED_SOURCE,
            "replaces": REPLACES["hal_fused"], "launches": None,
            "max_abs_err": err,
-           "ms": cuda_ms(lambda: hf.hal_fused(st, dy, wt, bs), 20),
+           "ms": cuda_ms(lambda: hf.hal_fused(st, dy, wt, bs), 50, warmup=3),
+           "kernel_ms": kernel_ms,
            "plain_ms": cuda_ms(lambda: hf.hal_fused_plain(st, dy, wt, bs), 5),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": cuda_ms(lambda: torch.nn.functional.conv3d(
                x4, wt, bs, padding=1), 5)}
     # hal_fwd computes the same function in fp32 too (with autograd's
-    # saved-tensor contract); its time on these inputs, beside hal_fused's
-    hal_fwd_ms = cuda_ms(lambda: hc.hal_fwd(st, dy, wt, bs), 20)
-    emit({"phase": "times", "rows": [row], "hal_fwd_fp32_ms": hal_fwd_ms})
+    # saved-tensor contract); its time on these inputs, through its wrapper
+    # and alone, beside hal_fused's
+    hal_fwd_ms = cuda_ms(lambda: hc.hal_fwd(st, dy, wt, bs), 50, warmup=3)
+    hal_fwd_kernel_ms = c_ms(lambda: hc._lib().hal_fwd(
+        0, *ptrs, b, f, h, w, hc._stream()), "hal_fwd")
+    emit({"phase": "times", "rows": [row], "hal_fwd_fp32_ms": hal_fwd_ms,
+          "hal_fwd_fp32_kernel_ms": hal_fwd_kernel_ms,
+          "hal_fused_wrapper_extra_ms": row["ms"] - kernel_ms})
     return row
 
 

@@ -1,21 +1,28 @@
-"""Where ``hal_dgrad``'s, ``s2d2_unpack``'s and ``hal_fwd``'s time goes, by
-ablation, on one NVIDIA GPU.
+"""Where ``hal_dgrad``'s, ``s2d2_unpack``'s, ``hal_fwd``'s and
+``hal_fused``'s time goes, by ablation, on one NVIDIA GPU.
 
-    python3 scripts/ablate_hal_dgrad.py [--kernel hal_dgrad|s2d2_unpack|hal_fwd]
+    python3 scripts/ablate_hal_dgrad.py [--kernel hal_dgrad|s2d2_unpack|hal_fwd|hal_fused]
+                                        [--fused-source FILE]
 
 Builds variants of ``video_distillation_torch/csrc/hal_conv.cu`` (bf16
-``hal_dgrad``, dd only, as the S2D-MTT slice runs it, and bf16 ``hal_fwd``)
-and of ``csrc/s2d2_move.cu`` (``s2d2_unpack``), each with one part cut out
-or one setting changed by a text substitution (a cut variant's results are
-wrong; only its time counts), into ``video_distillation_torch/_build/ablate/``
-with nvcc, one process per variant in parallel. Then times each through its
-C interface at the slice's shapes: ``hal_dgrad`` on ȳ (B=500, 3, F, 112, 112)
-and ``hal_fwd`` on static (500, 112, 112, 3) and dynamic (500, F, 112, 112,
-1), each with F = 16 and 1 (the F=1 time is the per-block fixed cost plus
-one frame), ``s2d2_unpack`` on the packed (50, 16, 60, 60, 36) cotangent.
-Prints one JSON line per variant (``hal_fwd``'s with ptxas's registers and
-spill bytes for the bf16 kernel), then the card's name and power limit.
-About a minute a kernel on an H100, most of it the parallel builds.
+``hal_dgrad``, dd only, as the S2D-MTT slice runs it, and ``hal_fwd``), of
+``csrc/s2d2_move.cu`` (``s2d2_unpack``) and of ``csrc/hal_fused.cu``, each
+with one part cut out or one setting changed by a text substitution (a cut
+variant's results are wrong; only its time counts), into
+``video_distillation_torch/_build/ablate/`` with nvcc, one process per
+variant in parallel. Then times each through its C interface at the main
+path's shapes: ``hal_dgrad`` on ȳ (B=500, 3, F, 112, 112) and bf16
+``hal_fwd`` on static (500, 112, 112, 3) and dynamic (500, F, 112, 112, 1),
+each with F = 16 and 1 (the F=1 time is the per-block fixed cost plus one
+frame), ``s2d2_unpack`` on the packed (50, 16, 60, 60, 36) cotangent;
+``hal_fused`` at the evaluation shape (B=50, F = 16 and 1, 112x112, fp32), its launches replayed
+from a CUDA graph so that a short one is not timed at the host's launch
+rate, beside ``hal_fwd`` in fp32 on the same inputs and a plain fill of y.
+``--fused-source`` times the variants of another ``hal_fused.cu``: the
+one-thread-a-pixel design of commit 8e5e6b8 has its own table. Prints one
+JSON line per variant (``hal_fwd``'s and ``hal_fused``'s with ptxas's
+registers and spill bytes), then the card's name and power limit. About a
+minute a kernel on an H100, most of it the parallel builds.
 """
 
 from __future__ import annotations
@@ -133,6 +140,78 @@ FWD = {
     "three_blocks_an_sm": [("__launch_bounds__(kFThreads, 2)\nhal_fwd_kernel",
                             "__launch_bounds__(kFThreads, 3)\nhal_fwd_kernel")],
 }
+# hal_fused: each text must occur once in the whole source. FUSED_PIXEL
+# cuts the one-thread-a-pixel design (csrc/hal_fused.cu as of commit
+# 8e5e6b8, for --fused-source); the table is the one whose first text the
+# source holds.
+FUSED_PIXEL = {
+    "full": [],
+    "no_stores": [  # the sums stay live, but almost never leave
+        ("      yb[co * plane + (size_t)t * HW + p] = acc;",
+         "      if (acc == -12345.f) yb[co * plane + (size_t)t * HW + p] = acc;")],
+    "no_dynamic_loads": [  # the window made in registers
+        ("? plane[hh * W + ww] : 0.f;",
+         "? __uint_as_float(0x3f800000u + hh * W + ww) : 0.f;")],
+    "no_dynamic_ffma": [  # a sum of 9 window values instead of 81 FFMAs
+        ("acc += sw[widx(kt, k / 3, k % 3, 3, co)] * win[kt][k];",
+         "if (co == 0 && kt == 1) acc += win[kt][k];")],
+    "no_static": [  # neither the static's loads nor its stencils
+        ("if (hh < 0 || hh >= H || ww < 0 || ww >= W) continue;\n      const float* sp",
+         "if (true) continue;\n      const float* sp")],
+    "weights_in_constant_bank": [  # each FFMA's weight from the constant bank
+        ("  __shared__ float sw[kNWB];\n"
+         "  for (int i = threadIdx.x; i < kNWB; i += blockDim.x) sw[i] = wb[i];\n"
+         "  __syncthreads();\n", ""),
+        ("__global__ void __launch_bounds__(kThreads)\nhal_fused_kernel",
+         "__constant__ float sw[kNWB];\n\n"
+         "__global__ void __launch_bounds__(kThreads)\nhal_fused_kernel"),
+        ("  const int HW = H * W;\n  const dim3 grid",
+         "  cudaMemcpyToSymbolAsync(sw, wb, kNWB * sizeof(float), 0,\n"
+         "                          cudaMemcpyDeviceToDevice, (cudaStream_t)stream);\n"
+         "  const int HW = H * W;\n  const dim3 grid")],
+}
+FUSED = {
+    "full": [],
+    "no_stores": [  # the sums stay live, but almost never leave
+        ("    if (!owner) return;\n",
+         "    if (!owner || a[0][0] != -12345.f) return;\n")],
+    "no_dynamic_loads": [  # the window made in registers, no shared loads
+        ("      load_win(win + kh * RS, v);",
+         "      for (int j = 0; j < 6; ++j) v[j] = __uint_as_float(0x3f800000u + e0 + kh + j);")],
+    "no_staging": [  # only frames 0 .. kAhead-1 are copied into the ring
+        ("    if (t + kAhead < F) stage(t + kAhead, (t + kAhead) % kSlots);\n", "")],
+    "no_dynamic_ffma": [  # a sum a pixel and tap column instead of 27 FFMAs
+        ("            nx[co][i] += wt(widx(0, kh, kw, 3, co)) * v[i + kw];\n"
+         "            cu[co][i] += wt(widx(1, kh, kw, 3, co)) * v[i + kw];\n"
+         "            pv[co][i] += wt(widx(2, kh, kw, 3, co)) * v[i + kw];",
+         "            if (co == 0) cu[0][i] += v[i + kw];")],
+    "no_static": [  # neither the static's copies nor its stencils
+        ("const int n3 = T.ncols * 3,", "const int n3 = 0,"),
+        ("for (int kh = 0; kh < 3; ++kh) {\n      float w[kWRow], v[20];",
+         "for (int kh = 0; kh < 0; ++kh) {\n      float w[kWRow], v[20];"),
+        ("    if (t == 1) sub_stencil(Phase<0>(), pv);\n", ""),
+        ("    if (F == 1) sub_stencil(Phase<0>(), pv);\n    sub_stencil(Phase<2>(), pv);\n", "")],
+    "no_u0_u2": [  # outputs 0 and F-1 keep their u0 and u2
+        ("    if (t == 1) sub_stencil(Phase<0>(), pv);\n", ""),
+        ("    if (F == 1) sub_stencil(Phase<0>(), pv);\n    sub_stencil(Phase<2>(), pv);\n", "")],
+    "weights_in_shared_memory": [  # a shared load an FFMA operand
+        ("__device__ __forceinline__ float wt(int i) { return c_w[i]; }",
+         "__shared__ float sw[kNWB];\n"
+         "__device__ __forceinline__ float wt(int i) { return sw[i]; }"),
+        ("  // zeros: what lies outside the image stays so\n",
+         "  for (int q = tid; q < kNWB; q += nt) sw[q] = c_w[q];\n  __syncthreads();\n")],
+    "no_weight_copy": [  # the constant bank is not refilled before the launch
+        ("  int rc = (int)cudaMemcpyToSymbolAsync(c_w, wb, kNWB * sizeof(float), 0,\n"
+         "                                        cudaMemcpyDeviceToDevice, stream);",
+         "  int rc = 0;")],
+    "three_frames_ahead": [("constexpr int kAhead = 2;", "constexpr int kAhead = 3;")],
+    "two_blocks_an_sm": [("constexpr int kBlocksPerSM = 3;", "constexpr int kBlocksPerSM = 2;")],
+}
+# every FFMA cut: the copies and stores alone; then the stores alone
+FUSED["memory_only"] = FUSED["no_dynamic_ffma"] + FUSED["no_static"][1:]
+FUSED["stores_only"] = (FUSED["no_dynamic_ffma"] + FUSED["no_static"] + FUSED["no_staging"]
+                        + FUSED["no_dynamic_loads"])
+FUSED_TABLES = [FUSED, FUSED_PIXEL]
 UNPACK_MARK = "s2d2_unpack_kernel(const T* __restrict__ g"
 UNPACK = {
     "full": [],
@@ -237,6 +316,26 @@ def cuda_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=50):
+    """Mean device time of ``fn`` over ``iters`` launches replayed from one
+    CUDA graph, so a short kernel is not timed at the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -309,21 +408,74 @@ def ablate_fwd(out_dir):
               flush=True)
 
 
+EVAL_SHAPE = (50, 16, 112, 112)
+
+
+def fused_inputs():
+    """static, dynamic, the 327 flat weights and y at the evaluation shape,
+    fp32."""
+    b, f, h, w = EVAL_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = torch.randn(b, h, w, 3, generator=gen, device="cuda")
+    dy = torch.randn(b, f, h, w, 1, generator=gen, device="cuda")
+    wb = 0.2 * torch.randn(327, generator=gen, device="cuda")
+    y = torch.empty(b, 3, f, h, w, device="cuda")
+    return st, dy, wb, y
+
+
+def ablate_fused(out_dir, source):
+    """hal_fused's variants at the evaluation shape through its C interface,
+    with F = 16 and 1, beside hal_fwd in fp32 on the same inputs."""
+    src = open(source).read()
+    table = next(t for t in FUSED_TABLES if t["no_stores"][0][0] in src)
+    libs, logs = build_variants(whole_source_variants(src, table), "fused", out_dir)
+    st, dy, wb, y = fused_inputs()
+    b, f, h, w = EVAL_SHAPE
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, lib in libs.items():
+        lib.hal_fused.argtypes = [p, p, p, p, i, i, i, i, p]
+
+        def call(frames, lib=lib):
+            # frames < f reads the first frames of each sample's dynamic
+            checked(lib.hal_fused(st.data_ptr(), dy.data_ptr(), wb.data_ptr(),
+                                  y.data_ptr(), b, frames, h, w, stream()), name)
+        print(json.dumps({"kernel": "hal_fused", "variant": name,
+                          **{f"ms_F{n}": graph_ms(lambda: call(n)) for n in (f, 1)},
+                          **ptxas(logs[name], "hal_fused_kernel")}),
+              flush=True)
+    print(json.dumps({"kernel": "fill_", "variant": "y alone (torch)",
+                      "ms_F16": graph_ms(lambda: y.fill_(1.0))}), flush=True)
+    lib = build.load("hal_conv")
+    lib.hal_fwd.argtypes = [i, p, p, p, p, i, i, i, i, p]
+
+    def fwd(frames):
+        checked(lib.hal_fwd(0, st.data_ptr(), dy.data_ptr(), wb.data_ptr(),
+                            y.data_ptr(), b, frames, h, w, stream()), "hal_fwd")
+    print(json.dumps({"kernel": "hal_fwd_fp32", "variant": "same inputs",
+                      **{f"ms_F{n}": graph_ms(lambda: fwd(n)) for n in (f, 1)}}),
+          flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=["hal_dgrad", "s2d2_unpack", "hal_fwd"],
-                    action="append", help="default: all three")
+    ap.add_argument("--kernel", action="append",
+                    choices=["hal_dgrad", "s2d2_unpack", "hal_fwd", "hal_fused"],
+                    help="default: all four")
+    ap.add_argument("--fused-source", default=str(build.CSRC_DIR / "hal_fused.cu"),
+                    help="the hal_fused source whose variants are timed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("ablate_hal_dgrad.py: needs a CUDA device")
     out_dir = str(build.BUILD_DIR / "ablate")
-    kernels = args.kernel or ["hal_dgrad", "s2d2_unpack", "hal_fwd"]
+    kernels = args.kernel or ["hal_dgrad", "s2d2_unpack", "hal_fwd", "hal_fused"]
     if "hal_dgrad" in kernels:
         ablate_dgrad(out_dir)
     if "s2d2_unpack" in kernels:
         ablate_unpack(out_dir)
     if "hal_fwd" in kernels:
         ablate_fwd(out_dir)
+    if "hal_fused" in kernels:
+        ablate_fused(out_dir, args.fused_source)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)

@@ -33,6 +33,12 @@ pytestmark = pytest.mark.cuda
 SHAPES = [(3, 5, 12, 20), (2, 1, 7, 9), (1, 2, 33, 17), (4, 8, 32, 32),
           (2, 3, 13, 112), (2, 1, 17, 112), (1, 2, 16, 113), (2, 2, 17, 17)]
 
+# hal_fused's edge cases: widths 13 and 113 (not multiples of 4: the
+# kernel's element paths), F = 1 and 2, H = 1, and batches whose runs end
+# inside a block (B*H*ceil(W/4) not a multiple of 256)
+FUSED_SHAPES = [(2, 1, 9, 13), (1, 2, 16, 113), (2, 2, 1, 13), (3, 4, 1, 112),
+                (3, 2, 7, 112), (5, 3, 9, 20)]
+
 
 @pytest.fixture
 def cuda():
@@ -133,7 +139,7 @@ def test_autograd_through_the_kernels(cuda, train_static):
             _close_fp32(a, r)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + FUSED_SHAPES)
 def test_fused_kernel_matches_plain(cuda, shape):
     """hal_fused (fp32, no grad) against its plain version and hal_fwd's;
     one launch counted in its own counter, none in hal_conv's."""
@@ -147,6 +153,25 @@ def test_fused_kernel_matches_plain(cuda, shape):
     _close_fp32(y, hf.hal_fused_plain(s, d, w, b))
     _close_fp32(y, hc.hal_fwd(s, d, w, b).permute(0, 2, 3, 4, 1))
     assert y.permute(0, 4, 1, 2, 3).is_contiguous()
+
+
+def test_fused_kernel_is_deterministic(cuda):
+    s, d, w, b, _ = _inputs((3, 16, 112, 112), torch.float32, seed=5)
+    assert torch.equal(hf.hal_fused(s, d, w, b), hf.hal_fused(s, d, w, b))
+
+
+def test_fused_back_to_back_launches_with_other_weights(cuda):
+    """The kernel takes its weights from a constant bank filled on the
+    launch's stream: two launches queued back to back with different
+    weights (the evaluation's n_hal > 1 path) each use their own."""
+    s, d, w1, b1, _ = _inputs((2, 5, 24, 40), torch.float32, seed=6)
+    _, _, w2, b2, _ = _inputs((2, 5, 24, 40), torch.float32, seed=7)
+    y1 = hf.hal_fused(s, d, w1, b1)
+    y2 = hf.hal_fused(s, d, w2, b2)
+    y3 = hf.hal_fused(s, d, w1, b1)
+    _close_fp32(y1, hf.hal_fused_plain(s, d, w1, b1))
+    _close_fp32(y2, hf.hal_fused_plain(s, d, w2, b2))
+    assert torch.equal(y1, y3)
 
 
 def test_fused_wrapper_raises_on_what_it_does_not_take(cuda):

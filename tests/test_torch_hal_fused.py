@@ -35,7 +35,8 @@ def _inputs(b, f, h, w, seed=0):
     return static, dynamic, kernel, bias
 
 
-@pytest.mark.parametrize("shape", [(2, 8, 16, 16), (3, 1, 7, 9)])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 16), (3, 1, 7, 9), (2, 2, 1, 13),
+                                   (1, 3, 5, 113)])
 def test_plain_matches_the_pallas_kernel(shape):
     static, dynamic, kernel, bias = _inputs(*shape)
     ref = np.asarray(hallucinate_fused(static, dynamic, kernel, bias,
