@@ -23,7 +23,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 3. parity  — one fp32 S2D-MTT step at a small shape (3 classes, 64x64x8,
              syn_steps=2) on the card and on the CPU from the same inputs,
              draws and dropout masks: grand loss within 1e-5 relative,
-             outer gradients within 1e-3 relative norm.
+             outer gradients within 1e-3 relative norm. Then the plain
+             first stage (Conv3d + ReLU + MaxPool) in fp32 on both devices
+             against an fp64 CPU step from the same draws: each device's
+             outer gradients' relative-norm distance from fp64, the card's
+             within 3x of the CPU's (or 1e-5).
 4. slice   — the S2D-MTT driver (``drivers.distill_s2d.run``) at full width
              (ConvNet3D 64/128/128, 50 classes, 112x112x16, syn_steps=10,
              bf16 with an fp32 head) from a fabricated expert buffer:
@@ -86,6 +90,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              step of 256 is timed, and the first-stage kernels counted
              (one pack, phase_argmax and phase_scatter a step, no unpack).
 
+9. static  — static learning at full width: a synthetic miniUCF101-sized
+             store (50 classes, 64 clips of 2 frames at 112x112) written
+             with ``save_packed``, then ``drivers.distill_static.main``
+             (load_packed -> single frames -> DC) with ConvNet, spc=10,
+             batch_real=64, --Iteration 1 (two iterations, each 10 matching
+             steps and 9 x 50 SGD steps on 500 images), fp32 with TF32
+             off. The .npy must be (500, 112, 112, 3), finite and moved
+             from its 'real' init, every loss finite; ms per matching step,
+             ms per inner step, seconds per iteration and peak memory.
+             Then one matching step and one inner_train at 3 classes,
+             32x32, spc=10, from the same inputs, fp32 on the card and on
+             the CPU against an fp64 CPU run: the card's loss, image
+             update and trained parameters each within 3x (relative norm)
+             of the CPU fp32 run's distance from fp64, or 1e-6. It
+             launches none of the port's kernels.
+
 Then the ``kernels`` line (launch counts: the three ``hal_conv`` and the
 five first-stage kernels from the bf16 slice run, ``hal_fused`` from the
 pipeline run), the card's name and power limit, and the ``ok`` line.
@@ -110,6 +130,11 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: CUDA is not available; this script needs a GPU")
 
 from video_distillation_torch.config import BufferConfig, get_preset  # noqa: E402
+from video_distillation_torch.data.store import (  # noqa: E402
+    load_packed, save_packed)
+from video_distillation_torch.data.synthetic import (  # noqa: E402
+    make_synthetic_video_data, synthetic_kwargs_from_name)
+from video_distillation_torch.distill import dc  # noqa: E402
 from video_distillation_torch.distill.buffer import (  # noqa: E402
     ExpertDraws, train_expert)
 from video_distillation_torch.distill.evaluate import (  # noqa: E402
@@ -119,7 +144,10 @@ from video_distillation_torch.distill.mtt import (  # noqa: E402
     make_batch_plan)
 from video_distillation_torch.distill.s2d import (  # noqa: E402
     S2DConfig, init_s2d_momentum, init_s2d_state)
+from video_distillation_torch.distill.dm import \
+    init_synthetic_raw  # noqa: E402
 from video_distillation_torch.drivers import buffer as buffer_driver  # noqa: E402
+from video_distillation_torch.drivers import distill_static  # noqa: E402
 from video_distillation_torch.drivers.common import load_data  # noqa: E402
 from video_distillation_torch.drivers.distill_s2d import run  # noqa: E402
 from video_distillation_torch.models.hallucinator import \
@@ -162,6 +190,17 @@ EXPERT = dict(dataset="synthetic_c50_n6_t1_f16_im112", batch=256,
 # the bf16 epoch may stray from fp32 at most this many times as far as an
 # fp32 epoch from bf16-rounded initial parameters does
 EXPERT_BF16_FACTOR = 3.0
+# static learning at full width: miniUCF101's 50 classes at 112x112, 64
+# clips a class so batch_real=64 draws distinct ones, 2 frames a clip; the
+# s2d_MTT_ms_5 preset's spc=10 (10 matching steps and 9 x 50 SGD steps on
+# 500 images an iteration)
+STATIC = dict(synthetic="synthetic_c50_n64_t1_f2_im112",
+              dataset="staticsmoke_c50_n64_f2_im112", model="ConvNet",
+              spc=10, batch_real=64, iteration=1, seed=0)
+# the card against the CPU, one matching step and one inner_train: ConvNet
+# (width 128) at 3 classes, 32x32, spc=10, batch_real=16
+DC_SMALL = dict(num_classes=3, clips_per_class=16, frames=2, im_size=(32, 32),
+                name="dc-card-vs-cpu")
 
 
 def emit(obj):
@@ -457,8 +496,11 @@ def phase_check():
 
 
 def phase_parity():
-    """One small fp32 S2D-MTT step, kernels on the card vs the plain
-    version on the CPU, from the same inputs, draws and dropout masks."""
+    """One small S2D-MTT step, kernels on the card vs the plain version on
+    the CPU, from the same inputs, draws and dropout masks: fp32 with the
+    fused first stage (the default), then the plain first stage in fp32 on
+    both devices beside an fp64 CPU step, the reference each fp32 step is
+    measured against (ROADMAP C.5)."""
     nc, f, im, steps = 3, 8, 64, 2
     cfg = S2DConfig(num_classes=nc, frames=f, im_size=(im, im))
     hyper = S2DHyper(100.0, 0.01, 0.01, 1e-5, False, True)
@@ -472,31 +514,53 @@ def phase_parity():
                         for _ in range(steps)]).int()
     draws = torch.randint(0, 2, (2, steps, nc), generator=gen)
     masks = torch.rand(steps, nc, 1, 1, 1, 128, generator=gen) < 0.5
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        mv = lambda t: t.to(dev)
+
+    def run_step(dev, dtype, fused):
+        def mv(t):
+            t = t.to(dev)
+            return t.to(getattr(torch, dtype)) if t.is_floating_point() else t
         st = {"static": mv(state["static"]), "dynamic": mv(state["dynamic"]),
               "hals": [{k: mv(v) for k, v in p.items()}
                        for p in state["hals"]]}
         step = S2DMTTStep("ConvNet3D", 3, nc, (im, im), f, steps, cfg, hyper,
-                          "float32", dev)
-        outs[dev] = step(None, st, torch.tensor(0.01, device=dev),
-                         init_s2d_momentum(st), torch.zeros((), device=dev),
-                         mv(t0), mv(t1), mv(plan), draws=mv(draws),
-                         keep_masks=mv(masks))
-    ref, got = outs["cpu"], outs["cuda"]
+                          dtype, dev)
+        step.core.model.fuse_first_stage = fused
+        return step(None, st, torch.tensor(0.01, device=dev),
+                    init_s2d_momentum(st), torch.zeros((), device=dev),
+                    mv(t0), mv(t1), mv(plan), draws=mv(draws),
+                    keep_masks=mv(masks))
+
+    def grad_rel(got, ref):
+        """Relative-norm distance of each outer gradient from ref's."""
+        pairs = {"dynamic": (got[7]["dynamic"], ref[7]["dynamic"]),
+                 "syn_lr": (got[7]["syn_lr"], ref[7]["syn_lr"])}
+        for k in ("weight", "bias"):
+            pairs[f"hal.{k}"] = (got[7]["hals"][0][k], ref[7]["hals"][0][k])
+        return {k: float((a.cpu().double() - r.cpu().double()).norm()
+                         / r.cpu().double().norm())
+                for k, (a, r) in pairs.items()}
+
+    ref, got = run_step("cpu", "float32", True), run_step("cuda", "float32", True)
     loss_rel = abs(float(got[4]) - float(ref[4])) / abs(float(ref[4]))
     assert loss_rel <= 1e-5, f"parity: grand loss off by {loss_rel}"
-    grads = {"dynamic": (got[7]["dynamic"], ref[7]["dynamic"]),
-             "syn_lr": (got[7]["syn_lr"], ref[7]["syn_lr"])}
-    for k in ("weight", "bias"):
-        grads[f"hal.{k}"] = (got[7]["hals"][0][k], ref[7]["hals"][0][k])
-    rel = {}
-    for k, (a, r) in grads.items():
-        rel[k] = float((a.cpu() - r).norm() / r.norm())
-        assert rel[k] <= 1e-3, f"parity: grad {k} off by {rel[k]} (rel norm)"
+    rel = grad_rel(got, ref)
+    for k, v in rel.items():
+        assert v <= 1e-3, f"parity: grad {k} off by {v} (rel norm)"
+
+    # the plain first stage (Conv3d + ReLU + MaxPool): each device's fp32
+    # outer gradients against the fp64 CPU step from the same draws; the
+    # card's may stray at most 3x as far as the CPU's own fp32 step does,
+    # or 1e-5 (fp32 rounding of a long sum), whichever is larger
+    f64 = run_step("cpu", "float64", False)
+    plain = {"cpu": grad_rel(run_step("cpu", "float32", False), f64),
+             "cuda": grad_rel(run_step("cuda", "float32", False), f64)}
+    for k, v in plain["cuda"].items():
+        assert v <= max(3 * plain["cpu"][k], 1e-5), (
+            f"parity: plain stage grad {k} {v} from fp64 on the card, over "
+            f"3x the CPU's {plain['cpu'][k]}")
     emit({"phase": "parity", "loss_rel_err": loss_rel,
-          "grad_rel_norm_err": rel, "ok": True})
+          "grad_rel_norm_err": rel,
+          "plain_stage_grad_rel_norm_vs_fp64": plain, "ok": True})
 
 
 def _finite(t):
@@ -996,6 +1060,129 @@ def phase_expert():
           "first_stage_launches": first_stage, "ok": True})
 
 
+def _timed(fn, seconds):
+    """``fn`` with each call's synced host time appended to ``seconds``."""
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def check_dc_card_vs_cpu():
+    """One DC matching step and one inner_train (50 SGD steps) from the
+    same parameters, images and real batch: fp32 (TF32 off) on the card
+    and on the CPU, each against an fp64 CPU run. The step is sensitive
+    (the cosine of small gradient rows; inner_train compounds it), so the
+    yardstick is the CPU fp32 run's own distance from fp64: the card's
+    loss, image update and trained parameters each within 3x of it
+    (relative norm), or within 1e-6."""
+    data = make_synthetic_video_data(**DC_SMALL)
+    store = distill_static.to_single_frame_store(data.train,
+                                                 np.random.default_rng(0))
+    rng = np.random.default_rng(1)
+    ipc, n = 10, DC_SMALL["num_classes"] * 10
+    syn = torch.from_numpy(rng.normal(size=(n, 32, 32, 3)).astype(np.float32))
+    mom = torch.from_numpy(rng.normal(size=syn.shape).astype(np.float32)) * 0.1
+    labels = torch.arange(DC_SMALL["num_classes"]).repeat_interleave(ipc)
+    idx = torch.from_numpy(store.sample_per_class(rng, 16))
+    trainers = {dev: dc.make_dc_trainer(store, "ConvNet", ipc, 16, 0.1, 0.01,
+                                        device=dev) for dev in ("cpu", "cuda")}
+    params = trainers["cpu"].fresh_net(torch.Generator().manual_seed(2))
+    runs = {}
+    for dev, dt in (("cpu", torch.float64), ("cpu", torch.float32),
+                    ("cuda", torch.float32)):
+        tr = trainers[dev]
+        on = lambda t: t.to(dev, dt)
+        p0 = {k: on(v) for k, v in params.items()}
+        _, m2, loss = tr.match_step(p0, on(syn), on(mom), idx.to(dev))
+        zeros = {k: torch.zeros_like(v) for k, v in p0.items()}
+        p2, _ = tr.inner_train(p0, zeros, on(syn), labels.to(dev))
+        runs[dev, dt] = (loss.reshape(1), m2 - 0.5 * on(mom),
+                         torch.cat([v.reshape(-1) for v in p2.values()]))
+    ref = [t.double() for t in runs["cpu", torch.float64]]
+    dist = {dev: {k: float((t.cpu().double() - r).norm() / r.norm())
+                  for k, t, r in zip(("loss", "update", "inner_train_params"),
+                                     runs[dev, torch.float32], ref)}
+            for dev in ("cpu", "cuda")}
+    for k, v in dist["cuda"].items():
+        assert v <= max(3 * dist["cpu"][k], 1e-6), (
+            f"DC card vs CPU: {k} {v} from fp64 on the card, over 3x the "
+            f"CPU's {dist['cpu'][k]}")
+    emit({"phase": "static_card_vs_cpu", "rel_norm_vs_fp64": dist,
+          "ok": True})
+
+
+def phase_static(tmp):
+    """Static learning (DC) through ``drivers.distill_static.main`` at full
+    width, from a store written with ``save_packed``; then its checks,
+    times and peak memory, and the card against the CPU at a small size."""
+    c = STATIC
+    data = make_synthetic_video_data(
+        name=c["dataset"], **synthetic_kwargs_from_name(c["synthetic"]))
+    data_path = os.path.join(tmp, "static_data")
+    save_packed(os.path.join(data_path, f"{c['dataset']}_packed"), data)
+    del data
+    times = {"match": [], "inner": [], "iteration": []}
+    losses = []
+    saved = {k: getattr(dc.DCTrainer, k)
+             for k in ("match_step", "inner_train", "__call__")}
+
+    def iteration(self, *args):
+        out = saved["__call__"](self, *args)
+        losses.append(out[2])
+        return out
+
+    dc.DCTrainer.match_step = _timed(saved["match_step"], times["match"])
+    dc.DCTrainer.inner_train = _timed(saved["inner_train"], times["inner"])
+    dc.DCTrainer.__call__ = _timed(iteration, times["iteration"])
+    logger = RecordingLogger()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run_s, path = _synced_seconds(lambda: distill_static.main([
+            "--dataset", c["dataset"], "--data_path", data_path, "--model",
+            c["model"], "--spc", str(c["spc"]), "--batch_real",
+            str(c["batch_real"]), "--Iteration", str(c["iteration"]),
+            "--save_path", os.path.join(tmp, "static_out"), "--seed",
+            str(c["seed"]), "--device", "cuda"], logger=logger))
+    finally:
+        for k, fn in saved.items():
+            setattr(dc.DCTrainer, k, fn)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    static = np.load(path)
+    n_cls = synthetic_kwargs_from_name(c["synthetic"])["num_classes"]
+    assert static.shape == (n_cls * c["spc"], 112, 112, 3), static.shape
+    assert static.dtype == np.float32 and np.isfinite(static).all()
+    # distill_static's 'real' initialisation, drawn again from the same seed
+    rng = np.random.default_rng(c["seed"])
+    singles = distill_static.to_single_frame_store(
+        load_packed(os.path.join(data_path, f"{c['dataset']}_packed")).train, rng)
+    init, _ = init_synthetic_raw(None, singles, c["spc"], 1, "real", rng)
+    moved = float(np.abs(static - init.numpy()[:, 0]).max())
+    assert moved > 0, "static: the learned images equal their init"
+    logged = [m["Loss"] for _, m in logger.records]
+    assert logged and all(np.isfinite(logged)), logged
+    assert len(losses) == c["iteration"] + 1 and all(np.isfinite(losses))
+    outer, inner = dc.get_loops(c["spc"])
+    assert len(times["match"]) == outer * len(losses)
+    assert len(times["inner"]) == (outer - 1) * len(losses)
+    emit({"phase": "static", "dataset": c["synthetic"], "model": c["model"],
+          "spc": c["spc"], "batch_real": c["batch_real"],
+          "iterations": len(losses), "outer_loop": outer,
+          "inner_loop": inner, "driver_seconds": run_s,
+          "ms_per_matching_step": float(np.mean(times["match"])) * 1e3,
+          "ms_per_inner_step": float(np.mean(times["inner"])) / inner * 1e3,
+          "seconds_per_dc_iteration": times["iteration"],
+          "mean_matching_loss": losses, "logged_loss": logged,
+          "max_abs_change_from_init": moved,
+          "max_memory_allocated_gb": peak_gb, "ok": True})
+    check_dc_card_vs_cpu()
+
+
 def main():
     use_exact_fp32()
     phase_build()
@@ -1008,6 +1195,7 @@ def main():
         rows["hal_fused"] = phase_check_fused()
         launches["hal_fused"] = phase_pipeline(tmp)
         phase_expert()
+        phase_static(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, row in rows.items():

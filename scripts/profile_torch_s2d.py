@@ -1,8 +1,9 @@
-"""Where the device time of one S2D-MTT outer step, or of one evaluation
-training step, of the PyTorch port goes.
+"""Where the device time of one S2D-MTT outer step, of one evaluation
+training step, or of one static-learning (DC) step of the PyTorch port goes.
 
     python3 scripts/profile_torch_s2d.py [--dtype bfloat16] [--trace out.json]
     python3 scripts/profile_torch_s2d.py --phase eval --steps 5
+    python3 scripts/profile_torch_s2d.py --phase match   # or --phase inner
 
 ``--phase distill`` (the default) runs ``S2DMTTStep`` at the slice's full
 width (ConvNet3D 64/128/128, 50 classes, 112x112x16, syn_steps=10, frozen
@@ -18,8 +19,14 @@ own kernels by name (time and calls per step), the device time
 of each convolution call site by its input shapes, the fused first stage's
 share (its five kernels plus its 2-D convolutions), and the cuDNN kernels
 of the first stage's GEMM (forward, dgrad, wgrad) profiled alone at the
-step's shape. ``--trace`` also writes the Chrome trace of the profiled
-steps.
+step's shape. ``--phase match`` and ``--phase inner`` profile static
+learning at the ``static`` phase's width of ``chip_smoke.py`` (ConvNet
+128/3, instance norm, 50 classes, 112x112, spc=10, fp32): ``--steps``
+gradient-matching steps (``DCTrainer.match_step``, batch_real=64, random
+uint8 real images), or ``--steps`` SGD steps of ``DCTrainer.inner_train``
+on the 500 synthetic images, after one warm-up; they have no first stage,
+so the first-stage fields are null. ``--trace`` also writes the Chrome
+trace of the profiled steps.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from video_distillation_torch.data.meta import (  # noqa: E402
     IMAGENET_MEAN, IMAGENET_STD, DatasetMeta)
+from video_distillation_torch.data.store import ClipStore  # noqa: E402
+from video_distillation_torch.distill import dc  # noqa: E402
 from video_distillation_torch.distill.evaluate import (  # noqa: E402
     EvalConfig, train_synset)
 from video_distillation_torch.distill.mtt import (  # noqa: E402
@@ -138,7 +147,8 @@ def first_stage_conv_kernels(dtype, batch, frames, im):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phase", default="distill", choices=("distill", "eval"))
+    p.add_argument("--phase", default="distill",
+                   choices=("distill", "eval", "match", "inner"))
     p.add_argument("--dtype", default="bfloat16",
                    choices=("bfloat16", "float32"),
                    help="the distillation's compute dtype (eval is fp32)")
@@ -177,13 +187,44 @@ def main(argv=None):
         theta, _, _ = train_synset(gen, None, None, meta, ecfg, cfg, state)
         return float(theta.norm())
 
+    def static_learning(phase, spc=10, batch_real=64):
+        """(work, warm-up) for a DC matching step or inner SGD steps."""
+        dmeta = DatasetMeta(name="profile_static", channel=3, im_size=im,
+                            num_classes=nc, mean=IMAGENET_MEAN,
+                            std=IMAGENET_STD, frames=1)
+        clips = rng.integers(0, 256, (nc * batch_real, *im, 3), np.uint8)
+        store = ClipStore(clips, np.repeat(np.arange(nc), batch_real), dmeta)
+        tr = dc.make_dc_trainer(store, "ConvNet", spc, batch_real, 0.1, 0.01,
+                                device=dev)
+        params = tr.fresh_net(gen)
+        syn = torch.randn((nc * spc, *im, 3), generator=gen, device=dev)
+        if phase == "match":
+            mom = torch.zeros_like(syn)
+            idx = torch.as_tensor(store.sample_per_class(rng, batch_real),
+                                  device=dev)
+            run = lambda n: float([tr.match_step(params, syn, mom, idx)  # noqa: E731
+                                   for _ in range(n)][-1][2])
+            return run, lambda: run(1)
+        labels = torch.arange(nc, device=dev).repeat_interleave(spc)
+
+        def run(n):
+            tr.inner_loop = n
+            zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+            p, _ = tr.inner_train(params, zeros, syn, labels)
+            return float(p["head.weight"].norm())
+        return run, lambda: run(1)
+
     if args.phase == "distill":
         work = lambda: [one(2 + it) for it in range(args.steps)][-1]  # noqa: E731
         for it in range(2):
             one(it)
-    else:
+    elif args.phase == "eval":
         work = lambda: evaluation(args.steps)  # noqa: E731
         evaluation(2)
+    else:
+        run, warm_up = static_learning(args.phase)
+        work = lambda: run(args.steps)  # noqa: E731
+        warm_up()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -213,12 +254,14 @@ def main(argv=None):
     convs = conv_ops(prof, args.steps)
     first_kernels = fams.get("first-stage kernels", 0.0)
     first_convs = sum(r["ms_per_step"] for r in convs if r["input_rank"] == 4)
+    staged = args.phase in ("distill", "eval")  # ConvNet3D's first stage
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({
         "card": smi, "phase": args.phase,
         "compute_dtype": args.dtype if args.phase == "distill" else "float32",
+        "model": "ConvNet3D" if staged else "ConvNet",
         "profiled_steps": args.steps,
         "wall_ms_per_step": wall * 1e3, "device_ms_per_step": busy,
         "device_busy_share": busy / (wall * 1e3),
@@ -234,10 +277,10 @@ def main(argv=None):
         "conv_call_sites": convs[:16],
         "first_stage_ms_per_step": {
             "kernels": first_kernels, "convolutions_2d": first_convs,
-            "total": first_kernels + first_convs},
+            "total": first_kernels + first_convs} if staged else None,
         "first_stage_gemm": first_stage_conv_kernels(
             torch.bfloat16 if args.phase == "distill" and args.dtype == "bfloat16"
-            else torch.float32, nc, f, im[0]),
+            else torch.float32, nc, f, im[0]) if staged else None,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
     }), flush=True)
     if args.trace:

@@ -148,9 +148,13 @@ def test_bf16_head_island_runs_the_head_in_fp32(pair):
     assert torch.equal(out, ref)
 
 
-def test_registry_names_the_roadmap_for_other_models():
+@pytest.mark.parametrize("name", ["ConvNetBN", "ConvNetASwishBN",
+                                  "ResNet18", "VideoConvNetMean"])
+def test_registry_names_the_roadmap_for_other_models(name):
+    """The 2-D ConvNet is ported (static learning); BatchNorm and the rest
+    of the zoo are not."""
     with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        create_model("ConvNet", 3, 10, (32, 32))
+        create_model(name, 3, 10, (32, 32))
 
 
 def test_flat_layout_counts_every_parameter(pair):

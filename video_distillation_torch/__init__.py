@@ -9,9 +9,11 @@ Pallas kernel on a ported path is a hand-written Hopper kernel under
 ``csrc/`` with a plain PyTorch version beside it, which only CPU tensors
 take.
 
-Ported so far: the paper's S2D-MTT pipeline, expert buffers
-(``python -m video_distillation_torch.drivers.buffer``), distillation and
-the multi-static evaluation
+Ported so far: the paper's S2D-MTT pipeline, from offline packing
+(``python -m video_distillation_torch.drivers.pack``) and static learning
+(``python -m video_distillation_torch.drivers.distill_static``) to expert
+buffers (``python -m video_distillation_torch.drivers.buffer``),
+distillation and the multi-static evaluation
 (``python -m video_distillation_torch.drivers.distill_s2d``), with all
 nine of the JAX package's Pallas kernels.
 """

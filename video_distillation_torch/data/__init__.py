@@ -1,1 +1,2 @@
-"""Datasets: metadata, the numpy stores and the synthetic test sets."""
+"""Datasets: metadata, the numpy stores, the offline packer and the
+synthetic test sets."""

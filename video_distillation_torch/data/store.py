@@ -3,9 +3,9 @@
 Port of ``video_distillation_tpu/data/store.py``: ``ClipStore`` (fixed
 train clips, uploaded once as uint8 and gathered on the device),
 ``RaggedFrameStore`` (ragged test videos with the reference's temporal-crop
-rules) and ``VideoData``, read from the directory that
-``video_distillation_tpu/data/packer.py`` writes. Row-sharding the clip
-store over several devices (``shard_store``) is not ported (ROADMAP A.16).
+rules) and ``VideoData``, and the directory format that ``data/packer.py``
+(and the JAX package's copy of it) writes. Row-sharding the clip store
+over several devices (``shard_store``) is not ported (ROADMAP A.16).
 """
 
 from __future__ import annotations
@@ -167,6 +167,19 @@ class VideoData:
     meta: DatasetMeta
     train: ClipStore
     test: RaggedFrameStore
+
+
+def save_packed(root: str, data: VideoData):
+    """Write a packed dataset directory (meta.json + the five .npy files;
+    ``store.py:203-212``)."""
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "meta.json"), "w") as f:
+        f.write(data.meta.to_json())
+    np.save(os.path.join(root, "train_clips.npy"), data.train.clips)
+    np.save(os.path.join(root, "train_labels.npy"), data.train.labels)
+    np.save(os.path.join(root, "test_frames.npy"), data.test.frames)
+    np.save(os.path.join(root, "test_offsets.npy"), data.test.offsets)
+    np.save(os.path.join(root, "test_labels.npy"), data.test.labels)
 
 
 def load_packed(root: str, mmap: bool = True) -> VideoData:

@@ -1,1 +1,2 @@
-"""Distillation: the S2D parameterization, MTT and expert buffers."""
+"""Distillation: the S2D parameterization, MTT, expert buffers and DC
+static learning."""

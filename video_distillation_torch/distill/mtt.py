@@ -39,7 +39,9 @@ from ..models.registry import create_model
 from .params import layout_for
 from .s2d import S2DConfig, distill_slots, hallucinate
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64 is for references only (chip_smoke.py's parity phase)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
 
 
 def make_batch_plan(rng: np.random.Generator, n: int, batch_syn: int,
@@ -68,8 +70,9 @@ def take_rows(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def masked_ce(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
     """Mean cross entropy over the rows with weight 1 (plan padding has 0),
-    in fp32 whatever the logits' dtype (mtt.py:171-185)."""
-    logp = F.log_softmax(logits.float(), dim=-1)
+    in fp32 for bf16 or fp32 logits (mtt.py:171-185), in fp64 for fp64."""
+    logp = F.log_softmax(logits.to(torch.promote_types(logits.dtype,
+                                                       torch.float32)), dim=-1)
     pick = -logp.gather(1, y[:, None])[:, 0]
     return (pick * w).sum() / w.sum().clamp_min(1.0)
 

@@ -22,6 +22,17 @@ written here as code, with no flax:
   ``video_distillation_tpu/drivers/convert.py:42-49``).
 
 The Hallucinator's flax tree is ``{'kernel': (3,3,3,cin,3), 'bias': (3,)}``.
+
+The 2-D ConvNet's (static learning; at 50 classes and 112x112 with the
+default instancenorm, P = 1,553,970)::
+
+    GroupNorm_{0,1,2}/bias, /scale (128,)       (LayerNorm_d with layernorm)
+    TorchConv_0/Conv_0/bias (128,)   /kernel (3,3,3,128)
+    TorchConv_{1,2}/Conv_0/bias (128,) /kernel (3,3,128,128)
+    TorchDense_0/Dense_0/bias (50,)  /kernel (25088, 50)
+
+with 2-D conv kernels HWIO (torch: OIHW), the dense kernel (in, out)
+(torch: (out, in)) and flax's norm ``scale`` the torch ``weight``.
 """
 
 from __future__ import annotations
@@ -35,12 +46,18 @@ import torch
 Entry = Tuple[Tuple[str, ...], str, Tuple[int, ...]]  # (jax path, torch name, jax shape)
 
 
+# JAX layout -> torch layout by rank: DHWIO -> OIDHW, HWIO -> OIHW,
+# (in, out) -> (out, in); and back
+_TO_TORCH = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}
+_TO_JAX = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}
+
+
 def _to_torch_layout(a):
-    return a.permute(4, 3, 0, 1, 2) if a.dim() == 5 else a
+    return a.permute(*_TO_TORCH[a.dim()]) if a.dim() in _TO_TORCH else a
 
 
 def _to_jax_layout(a):
-    return a.permute(2, 3, 4, 1, 0) if a.dim() == 5 else a
+    return a.permute(*_TO_JAX[a.dim()]) if a.dim() in _TO_JAX else a
 
 
 class JaxLayout:
@@ -66,6 +83,24 @@ class JaxLayout:
         entries.append((("TorchConv_0", "Conv_0", "bias"), "head.bias", (o,)))
         entries.append((("TorchConv_0", "Conv_0", "kernel"), "head.weight",
                         (1, 1, 1, i, o)))
+        return cls(entries)
+
+    @classmethod
+    def for_convnet2d(cls, model) -> "JaxLayout":
+        entries = []
+        norm = "LayerNorm" if model.net_norm == "layernorm" else "GroupNorm"
+        for d, conv in enumerate(model.convs):
+            o, i, kh, kw = conv.weight.shape
+            top = (f"TorchConv_{d}", "Conv_0")
+            entries.append((top + ("bias",), f"convs.{d}.bias", (o,)))
+            entries.append((top + ("kernel",), f"convs.{d}.weight", (kh, kw, i, o)))
+            if model.net_norm != "none":
+                entries.append(((f"{norm}_{d}", "bias"), f"norms.{d}.bias", (o,)))
+                entries.append(((f"{norm}_{d}", "scale"), f"norms.{d}.weight", (o,)))
+        o, i = model.head.weight.shape
+        top = ("TorchDense_0", "Dense_0")
+        entries.append((top + ("bias",), "head.bias", (o,)))
+        entries.append((top + ("kernel",), "head.weight", (i, o)))
         return cls(entries)
 
     @classmethod
@@ -127,8 +162,8 @@ def hal_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
 
 
 def from_jax_params(model, tree_or_flat) -> Dict[str, torch.Tensor]:
-    """The port's parameters for ``model`` (a ConvNet3D or a Hallucinator)
-    from the JAX package's flax tree or flat vector."""
+    """The port's parameters for ``model`` (a ConvNet3D, a ConvNet2D or a
+    Hallucinator) from the JAX package's flax tree or flat vector."""
     layout = layout_for(model)
     device = next(model.parameters()).device
     return layout.from_jax(tree_or_flat, device=device)
@@ -147,11 +182,14 @@ def to_jax_flat(model_or_params, model=None) -> np.ndarray:
 
 
 def layout_for(model) -> JaxLayout:
+    from ..models.convnet2d import ConvNet2D
     from ..models.convnet3d import ConvNet3D
     from ..models.hallucinator import Hallucinator
 
     if isinstance(model, ConvNet3D):
         return JaxLayout.for_convnet3d(model)
+    if isinstance(model, ConvNet2D):
+        return JaxLayout.for_convnet2d(model)
     if isinstance(model, Hallucinator):
         return JaxLayout.for_hallucinator(model.weight.shape[1])
     raise NotImplementedError(f"no JAX layout for {type(model).__name__}")

@@ -70,7 +70,7 @@ def load_data(cfg) -> VideoData:
         else:
             raise FileNotFoundError(
                 f"No packed store at {packed}. Run: python -m "
-                f"video_distillation_tpu.drivers.pack --dataset {name} "
+                f"video_distillation_torch.drivers.pack --dataset {name} "
                 f"--data_path {cfg.data_path} --out "
                 f"{os.path.dirname(packed)}")
     if getattr(cfg, "frames", None) not in (None, data.meta.frames):

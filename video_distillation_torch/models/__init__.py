@@ -1,1 +1,2 @@
-"""Models: ConvNet3D, the hallucinator and their building blocks."""
+"""Models: ConvNet3D, the 2-D ConvNet, the hallucinator and their building
+blocks."""

@@ -1,9 +1,9 @@
-"""Building blocks ConvNet3D needs: init bounds, activations, pools, the
-fp32 stage island, and the fused s2d2 first stage.
+"""Building blocks of the port's models: init bounds, activations, pools,
+norms, the fp32 stage island, and the fused s2d2 first stage.
 
 Port of the matching parts of ``video_distillation_tpu/models/layers.py``.
-Tensors here are NCDHW (torch's own layout); the models permute at their
-public boundary.
+Tensors here are channels-first (NCHW, NCDHW: torch's own layout); the
+models permute at their public boundary.
 """
 
 from __future__ import annotations
@@ -27,9 +27,11 @@ def torch_default_bound(fan_in: int) -> float:
 
 
 @torch.no_grad()
-def init_conv_(conv: nn.Conv3d, generator: Optional[torch.Generator] = None):
-    """Torch-default init of a conv's weight and bias from an explicit
-    generator. fan_in = in_channels * prod(kernel_size)."""
+def init_conv_(conv: nn.Module, generator: Optional[torch.Generator] = None):
+    """Torch-default init of a Conv2d's, Conv3d's or Linear's weight and
+    bias from an explicit generator (the JAX package's ``TorchConv`` and
+    ``TorchDense``, layers.py:369, :733). fan_in = in_channels *
+    prod(kernel_size), or in_features."""
     w = conv.weight
     bound = torch_default_bound(w.shape[1] * math.prod(w.shape[2:]))
     w.uniform_(-bound, bound, generator=generator)
@@ -51,14 +53,44 @@ def activation(name: str):
     raise ValueError(f"unknown activation function: {name}")
 
 
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
 def max_pool(x, window: Sequence[int], strides: Optional[Sequence[int]] = None):
-    """VALID max-pool over the (D, H, W) dims of NCDHW x (floor output size,
-    as torch and the JAX package both give)."""
-    return F.max_pool3d(x, tuple(window), stride=tuple(strides or window))
+    """VALID max-pool over the spatial dims of channels-first x, (H, W) or
+    (D, H, W) by the window's length (floor output size, as torch and the
+    JAX package both give)."""
+    return _MAX_POOL[len(window)](x, tuple(window),
+                                  stride=tuple(strides or window))
 
 
 def avg_pool(x, window: Sequence[int], strides: Optional[Sequence[int]] = None):
-    return F.avg_pool3d(x, tuple(window), stride=tuple(strides or window))
+    return _AVG_POOL[len(window)](x, tuple(window),
+                                  stride=tuple(strides or window))
+
+
+# flax's GroupNorm and LayerNorm epsilon (torch's default is 1e-5)
+NORM_EPS = 1e-6
+
+
+def norm_layer(net_norm: str, channels: int, device=None) -> Optional[nn.Module]:
+    """The reference's norm names as torch modules (``layers.py:796-819``);
+    None for 'none'. 'instancenorm' is GroupNorm(C groups) and 'groupnorm'
+    GroupNorm(4) (networks.py:778-790); the JAX 'layernorm' normalises over
+    (H, W, C) with one scale and bias per channel, which is GroupNorm(1).
+    Each keeps one weight (flax's ``scale``) and bias per channel. BatchNorm
+    is not ported (ROADMAP A.13)."""
+    groups = {"instancenorm": channels, "groupnorm": 4, "layernorm": 1}
+    if net_norm == "none":
+        return None
+    if net_norm in groups:
+        return nn.GroupNorm(groups[net_norm], channels, eps=NORM_EPS,
+                            device=device)
+    if net_norm == "batchnorm":
+        raise NotImplementedError(
+            "net_norm='batchnorm' is not ported yet (ROADMAP A.13)")
+    raise ValueError(f"unknown net_norm: {net_norm}")
 
 
 KNOWN_STAGES = frozenset({"s1", "s2", "s3", "head"})

@@ -1,7 +1,11 @@
 """Model factory (port of ``video_distillation_tpu/models/registry.py``).
 
-Only ConvNet3D is ported; like the reference factory (utils.py:608-609) it
-is built with net_norm='none' and net_pooling='maxpooling'.
+Ported: ConvNet3D, built as the reference factory builds it (utils.py:
+608-609) with net_norm='none' and net_pooling='maxpooling', and the 2-D
+ConvNet with its depth, width, activation, norm and pooling variants
+(``ConvNetD*``, ``ConvNetW*``, ``ConvNetAS/AR/AL/ASwish``,
+``ConvNetNN/IN/GN/LN``, ``ConvNetNP/MP/AP``). The BatchNorm variants and
+the rest of the zoo raise (ROADMAP A.13).
 """
 
 from __future__ import annotations
@@ -10,9 +14,32 @@ from typing import Optional, Tuple
 
 import torch
 
+from .convnet2d import ConvNet2D
 from .convnet3d import ConvNet3D
 
-DEFAULT_WIDTH, DEFAULT_DEPTH, DEFAULT_ACT = 128, 3, "relu"
+DEFAULT_WIDTH, DEFAULT_DEPTH = 128, 3
+DEFAULT_ACT, DEFAULT_NORM, DEFAULT_POOLING = "relu", "instancenorm", "avgpooling"
+
+# ConvNet variants by name suffix (registry.py:67-98)
+_CONVNET_VARIANTS = {
+    "": {}, "AS": {"net_act": "sigmoid"}, "AR": {"net_act": "relu"},
+    "AL": {"net_act": "leakyrelu"}, "ASwish": {"net_act": "swish"},
+    "NN": {"net_norm": "none"}, "LN": {"net_norm": "layernorm"},
+    "IN": {"net_norm": "instancenorm"}, "GN": {"net_norm": "groupnorm"},
+    "NP": {"net_pooling": "none"}, "MP": {"net_pooling": "maxpooling"},
+    "AP": {"net_pooling": "avgpooling"}}
+
+
+def _convnet_kwargs(model: str) -> Optional[dict]:
+    """ConvNet2D's overrides for a ported ConvNet variant name, else None."""
+    if not model.startswith("ConvNet"):
+        return None
+    tail = model[len("ConvNet"):]
+    if tail in _CONVNET_VARIANTS:
+        return _CONVNET_VARIANTS[tail]
+    if tail[:1] in ("D", "W") and tail[1:].isdigit():
+        return {"net_depth" if tail[0] == "D" else "net_width": int(tail[1:])}
+    return None
 
 
 def create_model(model: str, channel: int, num_classes: int,
@@ -26,9 +53,17 @@ def create_model(model: str, channel: int, num_classes: int,
                          net_pooling="maxpooling", frames=frames,
                          im_size=tuple(im_size), generator=generator,
                          device=device)
+    kw = _convnet_kwargs(model)
+    if kw is not None:
+        base = dict(channel=channel, num_classes=num_classes,
+                    net_width=DEFAULT_WIDTH, net_depth=DEFAULT_DEPTH,
+                    net_act=DEFAULT_ACT, net_norm=DEFAULT_NORM,
+                    net_pooling=DEFAULT_POOLING, im_size=tuple(im_size))
+        return ConvNet2D(**{**base, **kw}, generator=generator, device=device)
     raise NotImplementedError(
-        f"model {model!r} is not ported yet: only ConvNet3D is; the rest of "
-        "the model zoo is ROADMAP A.13")
+        f"model {model!r} is not ported yet: only ConvNet3D and the 2-D "
+        "ConvNet variants without BatchNorm are; the rest of the model zoo "
+        "is ROADMAP A.13")
 
 
 def get_eval_pool(eval_mode: str, model: str, model_eval: Optional[str] = None):

@@ -1,1 +1,1 @@
-"""Operators with hand-written CUDA kernels, and their build."""
+"""Operators with hand-written CUDA kernels, their build, and the losses."""
