@@ -19,7 +19,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              plain version and the cuDNN convolution that computes the same
              function (``hal_dgrad`` dd only, as the slice runs it, and
              with ds beside it); the bound takes the bf16 products at the tensor
-             cores' rate and reports the FFMA time beside it.
+             cores' rate and reports the FFMA time beside it. Then the three
+             in fp32 at S2D-DM's shape (B=50, F=16, 112x112): forward and
+             dgrad (dd only) within 1e-5, the weight gradient within 1e-5
+             of the plain version computed in fp64 (with the fp32 plain
+             version's, cuDNN's TF32 and the kernel's on bf16 inputs
+             distances from fp64 beside it) and bit-equal across two
+             calls; each timed beside its byte bound and cuDNN's conv3d.
 3. parity  — one fp32 S2D-MTT step at a small shape (3 classes, 64x64x8,
              syn_steps=2) on the card and on the CPU from the same inputs,
              draws and dropout masks: grand loss within 1e-5 relative,
@@ -105,6 +111,33 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              update and trained parameters each within 3x (relative norm)
              of the CPU fp32 run's distance from fp64, or 1e-6. It
              launches none of the port's kernels.
+10. baselines — the paper's baselines at full width (ConvNet3D, 50
+             classes, 112x112x16) through their drivers, from one store of
+             64 clips a class written with ``save_packed``: raw DM
+             (``drivers.distill_baseline.main``, the DM preset, fp32: 1
+             warm-up + 3 timed steps, then one bf16 step), S2D-DM
+             (``drivers.distill_s2d.run``, ``s2d_DM_ms``, fp32 compose),
+             raw MTT (the MTT preset from a fabricated two-snapshot buffer:
+             1 warm-up + 3 timed bf16 steps, then one fp32 step) and
+             k-center and herding (``drivers.distill_coreset.main``); the
+             evaluations cut to one net of 10 epochs. Each step runs with
+             the launch counts set to 0 just before it and checked just
+             after: a DM step packs and takes the phase max once per real
+             chunk of 320 clips and once for the synthetic set, scatters
+             and unpacks once and never selects; S2D-DM adds one launch of
+             each ``hal_conv`` kernel; raw MTT launches as an S2D-MTT outer
+             step; a coreset selection packs and takes the phase max once
+             per class. Losses and gradients finite, the learned sets moved,
+             syn_lr >= 0.001, every chosen clip from its class, ``hal_fused``
+             once per evaluation training step; ms per step (real embed and
+             the rest), steps/s, ms per embed chunk, peak memory. Then one
+             raw DM, one S2D-DM and one raw MTT step at 3 classes, 64x64x8,
+             fp32, on the card against the CPU from the same inputs, net and
+             draws: DM losses within 1e-5 relative, gradients and updates
+             within 1e-4 (relative norm); MTT's loss within 1e-5 and its
+             gradients within 1e-3, or, past that, the card's distance from
+             an fp64 CPU step within 3x of the CPU's (or 1e-5) and within
+             1e-2.
 
 Then the ``kernels`` line (launch counts: the three ``hal_conv`` and the
 five first-stage kernels from the bf16 slice run, ``hal_fused`` from the
@@ -113,6 +146,7 @@ pipeline run), the card's name and power limit, and the ``ok`` line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -134,22 +168,24 @@ from video_distillation_torch.data.store import (  # noqa: E402
     load_packed, save_packed)
 from video_distillation_torch.data.synthetic import (  # noqa: E402
     make_synthetic_video_data, synthetic_kwargs_from_name)
-from video_distillation_torch.distill import dc  # noqa: E402
+from video_distillation_torch.distill import coreset, dc, dm  # noqa: E402
 from video_distillation_torch.distill.buffer import (  # noqa: E402
     ExpertDraws, train_expert)
 from video_distillation_torch.distill.evaluate import (  # noqa: E402
     TEST_BATCH, EvalConfig, run_test_pass, sample_test_batches, train_synset)
 from video_distillation_torch.distill.mtt import (  # noqa: E402
-    S2DHyper, S2DMTTStep, TrajectoryBuffer, flat_param_template,
+    MTTStep, S2DHyper, S2DMTTStep, TrajectoryBuffer, flat_param_template,
     make_batch_plan)
 from video_distillation_torch.distill.s2d import (  # noqa: E402
     S2DConfig, init_s2d_momentum, init_s2d_state)
 from video_distillation_torch.distill.dm import \
     init_synthetic_raw  # noqa: E402
 from video_distillation_torch.drivers import buffer as buffer_driver  # noqa: E402
-from video_distillation_torch.drivers import distill_static  # noqa: E402
+from video_distillation_torch.drivers import (  # noqa: E402
+    distill_baseline, distill_coreset, distill_static)
 from video_distillation_torch.drivers.common import load_data  # noqa: E402
-from video_distillation_torch.drivers.distill_s2d import run  # noqa: E402
+from video_distillation_torch.drivers.distill_s2d import (  # noqa: E402
+    build_s2d, run)
 from video_distillation_torch.models.hallucinator import \
     init_hallucinator  # noqa: E402
 from video_distillation_torch.ops import build, hal_conv as hc  # noqa: E402
@@ -492,7 +528,97 @@ def phase_check():
              "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     emit({"phase": "times", "rows": list(rows.values()),
           "ffma_bound_ms": ffma_ms, "hal_dgrad_ds_dd": ds_dd})
+    check_hal_fp32_full_width()
     return rows
+
+
+def hal_wgrad_fp64(g, static, dynamic):
+    """(dweight, dbias) in fp64 from the same inputs: cuDNN's weight
+    gradient on the materialised [static | dynamic] input."""
+    b, _, f, h, w = g.shape
+    x4 = torch.cat([static.double().permute(0, 3, 1, 2).unsqueeze(2)
+                    .expand(b, 3, f, h, w),
+                    dynamic.double().permute(0, 4, 1, 2, 3)], dim=1)
+    g64 = g.double()
+    return (torch.nn.grad.conv3d_weight(x4, (3, 4, 3, 3, 3), g64, padding=1),
+            g64.sum((0, 2, 3, 4)))
+
+
+def wgrad_rel_err(dk, db, rk, rb):
+    """max |error| over the largest |value|, the worse of dk and db."""
+    return max(max_err(dk, rk) / float(rk.abs().max()),
+               max_err(db, rb) / float(rb.abs().max()))
+
+
+def check_hal_fp32_full_width():
+    """The three hal_conv kernels in fp32 at S2D-DM's shape (B = C x vpc =
+    50, F=16, 112x112; S2D-DM composes in fp32), each within 1e-5 of the
+    largest |value| of its plain version (the fp32 tolerance above): the
+    forward and dd-only dgrad against the plain version in fp32, the
+    weight gradient, whose taps each sum 10^7 products, against it in
+    fp64, beside the fp32 plain version's, cuDNN's TF32 and the kernel's
+    on bf16 inputs distances from fp64; the weight gradient bit-equal
+    across two calls; each timed beside its byte bound and cuDNN's
+    conv3d."""
+    b, f, h, w = EVAL_SHAPE
+    st, dy, wt, bs, g = inputs(b, f, h, w, torch.float32, 5)
+    errs = {"hal_fwd": check_max("hal_fwd fp32 full width",
+                                 hc.hal_fwd(st, dy, wt, bs),
+                                 hc.hal_fwd_plain(st, dy, wt, bs), 1e-5)}
+    _, dd = hc.hal_dgrad(g, wt, False, True)
+    errs["hal_dgrad"] = check_max("hal_dgrad dd fp32 full width", dd,
+                                  hc.hal_dgrad_plain(g, wt)[1], 1e-5)
+    dk, db = hc.hal_wgrad(g, st, dy)
+    rk, rb = hal_wgrad_fp64(g, st, dy)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        tf32 = hc.hal_wgrad_plain(g, st, dy)
+    bf16 = lambda t: t.to(torch.bfloat16)
+    rel_to_fp64 = {
+        "kernel": wgrad_rel_err(dk, db, rk, rb),
+        "plain_fp32": wgrad_rel_err(*hc.hal_wgrad_plain(g, st, dy), rk, rb),
+        "plain_tf32": wgrad_rel_err(*tf32, rk, rb),
+        "kernel_bf16_inputs": wgrad_rel_err(
+            *hc.hal_wgrad(bf16(g), bf16(st), bf16(dy)), rk, rb)}
+    emit({"phase": "check_fp32_full_width_wgrad",
+          "rel_err_to_fp64": rel_to_fp64})
+    errs["hal_wgrad"] = max(check_max("hal_wgrad dk fp32 full width", dk, rk,
+                                      1e-5),
+                            check_max("hal_wgrad db fp32 full width", db, rb,
+                                      1e-5))
+    check_wgrad_deterministic("fp32 full width", dk, db, g, st, dy)
+    x4 = torch.cat([st.permute(0, 3, 1, 2).unsqueeze(2).expand(b, 3, f, h, w),
+                    dy.permute(0, 4, 1, 2, 3)], dim=1).contiguous()
+    bw, ffma, _ = card_peaks(torch.cuda.get_device_name(0))
+    hw, e = h * w, 4
+    # (kernel, plain, cuDNN, bytes moved, fp32 FLOPs at the FFMA rate)
+    ms = {
+        "hal_fwd": (lambda: hc.hal_fwd(st, dy, wt, bs),
+                    lambda: hc.hal_fwd_plain(st, dy, wt, bs),
+                    lambda: torch.nn.functional.conv3d(x4, wt, bs, padding=1),
+                    e * b * hw * (3 + f + 3 * f),
+                    b * hw * (f * 2 * 81 + 2 * 243 + 3 * f)),
+        "hal_dgrad": (lambda: hc.hal_dgrad(g, wt, False, True),
+                      lambda: hc.hal_dgrad_plain(g, wt, False, True),
+                      lambda: torch.nn.grad.conv3d_input(x4.shape, wt, g,
+                                                         padding=1),
+                      e * b * hw * (3 * f + f), b * f * hw * 2 * 81),
+        "hal_wgrad": (lambda: hc.hal_wgrad(g, st, dy),
+                      lambda: hc.hal_wgrad_plain(g, st, dy),
+                      lambda: torch.nn.grad.conv3d_weight(x4, wt.shape, g,
+                                                          padding=1),
+                      e * b * hw * (3 * f + 3 + f) + e * 327,
+                      b * hw * (f * 2 * 81 + 2 * 243 + 6 * f)),
+    }
+    rows = []
+    for name, (kern, plain, lib, nbytes, flops) in ms.items():
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / ffma * 1e3
+        rows.append({"name": name, "dtype": "float32", "shape": EVAL_SHAPE,
+                     "max_abs_err": errs[name], "ms": cuda_ms(kern, 20),
+                     "plain_ms": cuda_ms(plain, 3),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "library_ms": cuda_ms(lib, 5)})
+    emit({"phase": "check_fp32_full_width", "rows": rows, "ok": True})
 
 
 def phase_parity():
@@ -1116,16 +1242,24 @@ def check_dc_card_vs_cpu():
           "ok": True})
 
 
+def packed_synthetic(tmp, synthetic, dataset, folder):
+    """``make_synthetic_video_data`` at the sizes ``synthetic`` names,
+    written with ``save_packed`` as ``dataset`` under ``tmp/folder``.
+    Returns the data path."""
+    data = make_synthetic_video_data(
+        name=dataset, **synthetic_kwargs_from_name(synthetic))
+    data_path = os.path.join(tmp, folder)
+    save_packed(os.path.join(data_path, f"{dataset}_packed"), data)
+    return data_path
+
+
 def phase_static(tmp):
     """Static learning (DC) through ``drivers.distill_static.main`` at full
     width, from a store written with ``save_packed``; then its checks,
     times and peak memory, and the card against the CPU at a small size."""
     c = STATIC
-    data = make_synthetic_video_data(
-        name=c["dataset"], **synthetic_kwargs_from_name(c["synthetic"]))
-    data_path = os.path.join(tmp, "static_data")
-    save_packed(os.path.join(data_path, f"{c['dataset']}_packed"), data)
-    del data
+    data_path = packed_synthetic(tmp, c["synthetic"], c["dataset"],
+                                 "static_data")
     times = {"match": [], "inner": [], "iteration": []}
     losses = []
     saved = {k: getattr(dc.DCTrainer, k)
@@ -1161,7 +1295,8 @@ def phase_static(tmp):
     rng = np.random.default_rng(c["seed"])
     singles = distill_static.to_single_frame_store(
         load_packed(os.path.join(data_path, f"{c['dataset']}_packed")).train, rng)
-    init, _ = init_synthetic_raw(None, singles, c["spc"], 1, "real", rng)
+    init, _ = init_synthetic_raw(None, singles, c["spc"], 1, "real", rng,
+                                 device="cpu")
     moved = float(np.abs(static - init.numpy()[:, 0]).max())
     assert moved > 0, "static: the learned images equal their init"
     logged = [m["Loss"] for _, m in logger.records]
@@ -1183,6 +1318,427 @@ def phase_static(tmp):
     check_dc_card_vs_cpu()
 
 
+# the baselines at full width: miniUCF101's 50 classes, 64 train clips of
+# 16 frames at 112x112 a class (batch_real=64 draws distinct ones; 1.93 GB
+# of uint8), one test video of 40 frames a class; the DM, s2d_DM_ms and MTT
+# presets and the coreset driver's defaults, evaluation cut to one net of
+# 10 epochs (the presets: 3-5 nets of 500, the coreset driver 5 of 1000)
+BASELINES = dict(synthetic="synthetic_c50_n64_t1_f16_im112",
+                 dataset="baselinesmoke_c50_n64_t1_f16_im112",
+                 num_classes=50, frames=16, im=112, dm_iterations=3,
+                 mtt_iterations=3, num_eval=1, epoch_eval_train=10, seed=0)
+# a raw MTT gradient past 1e-3 of the CPU's stays within this of fp64
+MTT_FP64_CAP = 1e-2
+# the card against the CPU: ConvNet3D at 3 classes, 64x64x8
+BASELINES_SMALL = dict(num_classes=3, clips_per_class=6, test_per_class=1,
+                       frames=8, im_size=(64, 64), name="baselines-card-vs-cpu")
+
+
+def dm_step_launches(real_chunks):
+    """First-stage launches of one DM step: the synthetic forward and each
+    real chunk's pack and take the phase max; the backward into the
+    synthetic set scatters and unpacks once; nothing selects."""
+    return {"phase_argmax": 1 + real_chunks, "phase_select": 0,
+            "phase_scatter": 1, "s2d2_pack": 1 + real_chunks,
+            "s2d2_unpack": 1}
+
+
+@contextlib.contextmanager
+def checked_steps(cls, check, seconds):
+    """Every call of ``cls.__call__`` (a training step) runs with the
+    kernels' launch counts set to 0 just before it; its synced host time is
+    appended to ``seconds`` and ``check(out)`` reads its output and the
+    counts just after it."""
+    orig = cls.__call__
+
+    def call(self, *args, **kwargs):
+        reset_first_stage()
+        hc.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        check(out)
+        return out
+
+    cls.__call__ = call
+    try:
+        yield
+    finally:
+        cls.__call__ = orig
+
+
+def _check_hal_launches(where, want):
+    if dict(hc.LAUNCHES) != want:
+        raise AssertionError(f"{where}: hal_conv launches {dict(hc.LAUNCHES)}, "
+                             f"expected {want}")
+
+
+def _common_argv(data_path, out, iterations, evaluate):
+    """Flags shared by the baseline runs: the store, the cut evaluation
+    (at iteration 0 only, or none), the card."""
+    c = BASELINES
+    return ["--dataset", c["dataset"], "--data_path", data_path,
+            "--save_path", out, "--Iteration", str(iterations),
+            "--startIt", "0" if evaluate else str(iterations + 1),
+            "--eval_it", "1000", "--num_eval", str(c["num_eval"]),
+            "--epoch_eval_train", str(c["epoch_eval_train"]),
+            "--seed", str(c["seed"]), "--device", "cuda"]
+
+
+def baselines_dm(data_path, tmp, store):
+    """Raw DM through ``distill_baseline.main`` (the DM preset, fp32): 1
+    warm-up + timed steps, each checked; then one bf16 step."""
+    c = BASELINES
+    chunks = -(-c["num_classes"] * 64 // dm.REAL_CHUNK)  # batch_real=64
+    want = dm_step_launches(chunks)
+    res = {}
+    for dtype, iterations in (("float32", c["dm_iterations"]),
+                              ("bfloat16", 0)):
+        steps, real, losses = [], [], []
+
+        def check(out):
+            state, loss = out
+            losses.append(float(loss))
+            if not (np.isfinite(losses[-1]) and _finite(state.syn_images)):
+                raise AssertionError(f"DM {dtype}: non-finite loss or images")
+            check_first_stage_counts(f"DM {dtype} step", want)
+            _check_hal_launches(f"DM {dtype} step", {k: 0 for k in hc.LAUNCHES})
+
+        out_dir = os.path.join(tmp, f"baselines_dm_{dtype}")
+        saved = dm._DMTrainerBase.real_feats
+        dm._DMTrainerBase.real_feats = _timed(saved, real)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with checked_steps(dm.DMTrainer, check, steps):
+                run_s, state = _synced_seconds(lambda: distill_baseline.main(
+                    ["--preset", "DM", "--compute_dtype", dtype,
+                     *_common_argv(data_path, out_dir, iterations,
+                                   dtype == "float32")],
+                    logger=MetricLogger(quiet=True)))
+        finally:
+            dm._DMTrainerBase.real_feats = saved
+        init, _ = init_synthetic_raw(None, store, 1, c["frames"], "real",
+                                     np.random.default_rng(c["seed"]), "cuda")
+        moved = float((state.syn_images - init).abs().max())
+        assert moved > 0, f"DM {dtype}: the images equal their init"
+        row = {"driver_seconds": run_s, "steps": len(steps),
+               "losses": losses, "max_abs_change_from_init": moved,
+               "real_chunks": chunks, "launches_per_step": want,
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 2 ** 30}
+        timed = slice(1, None) if len(steps) > 1 else slice(None)
+        row["ms_per_step"] = float(np.mean(steps[timed])) * 1e3
+        row["ms_real_embed"] = float(np.mean(real[timed])) * 1e3
+        row["ms_synthetic_fwd_bwd_update"] = row["ms_per_step"] - row["ms_real_embed"]
+        if dtype == "float32":
+            out = os.path.join(out_dir, f"Baseline_DM_{c['dataset']}")
+            img = np.load(os.path.join(out, "images_0.npy"))
+            assert img.shape == tuple(init.shape) and np.isfinite(img).all()
+            assert os.path.exists(os.path.join(out, "png", "videos_000000.png"))
+        res[dtype] = row
+    emit({"phase": "baselines_dm", **res, "ok": True})
+    return res
+
+
+def baselines_s2d_dm(data_path, tmp):
+    """S2D-DM through ``distill_s2d.run`` (``s2d_DM_ms``, fp32): each step
+    launches the three hal_conv kernels once and the first stage as a DM
+    step does; the evaluation launches hal_fused once a training step."""
+    c = BASELINES
+    chunks = -(-c["num_classes"] * 64 // dm.REAL_CHUNK)
+    want = dm_step_launches(chunks)
+    cfg = get_preset("s2d_DM_ms")
+    cfg.s2d = True
+    cfg.dataset, cfg.data_path = c["dataset"], data_path
+    cfg.save_path = os.path.join(tmp, "baselines_s2d_dm")
+    cfg.Iteration, cfg.startIt, cfg.eval_it = c["dm_iterations"], 0, 1000
+    cfg.num_eval, cfg.epoch_eval_train = c["num_eval"], c["epoch_eval_train"]
+    cfg.seed, cfg.device = c["seed"], "cuda"
+    data = load_data(cfg)
+    steps, real, losses = [], [], []
+
+    def check(out):
+        losses.append(float(out[2]))
+        if not np.isfinite(losses[-1]):
+            raise AssertionError("S2D-DM: non-finite loss")
+        check_first_stage_counts("S2D-DM step", want)
+        _check_hal_launches("S2D-DM step", {k: 1 for k in hc.LAUNCHES})
+
+    saved = dm._DMTrainerBase.real_feats
+    dm._DMTrainerBase.real_feats = _timed(saved, real)
+    torch.cuda.reset_peak_memory_stats()
+    hf.reset_launches()
+    try:
+        with checked_steps(dm.S2DDMTrainer, check, steps):
+            run_s, holder = _synced_seconds(
+                lambda: run(cfg, data, MetricLogger(quiet=True)))
+    finally:
+        dm._DMTrainerBase.real_feats = saved
+    expect = (cfg.epoch_eval_train + 1) * cfg.num_eval
+    assert hf.LAUNCHES["hal_fused"] == expect, (
+        f"S2D-DM: hal_fused launched {hf.LAUNCHES['hal_fused']}, {expect} "
+        "expected")
+    fresh = build_s2d(cfg, data.meta, "cuda")[1]
+    st = holder["state"]
+    moved = {"dynamic": float((st["dynamic"] - fresh["dynamic"]).abs().max()),
+             "hal": float((st["hals"][0]["weight"]
+                           - fresh["hals"][0]["weight"]).abs().max())}
+    assert all(v > 0 for v in moved.values()), moved
+    assert torch.equal(st["static"], fresh["static"])  # frozen
+    assert all(_finite(t) for t in (st["dynamic"], st["hals"][0]["weight"]))
+    row = {"phase": "baselines_s2d_dm", "driver_seconds": run_s,
+           "steps": len(steps), "losses": losses,
+           "ms_per_step": float(np.mean(steps[1:])) * 1e3,
+           "ms_real_embed": float(np.mean(real[1:])) * 1e3,
+           "max_abs_change": moved, "hal_fused_launches": expect,
+           "launches_per_step": {**want, **{k: 1 for k in hc.LAUNCHES}},
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 2 ** 30, "ok": True}
+    row["ms_synthetic_fwd_bwd_update"] = row["ms_per_step"] - row["ms_real_embed"]
+    emit(row)
+    return row
+
+
+def baselines_mtt(data_path, tmp):
+    """Raw MTT through ``distill_baseline.main`` (the MTT preset) from a
+    fabricated two-snapshot buffer: 1 warm-up + 3 timed steps in bf16 with
+    the fp32 head, then one fp32 step."""
+    c = BASELINES
+    nc, f, im = c["num_classes"], c["frames"], c["im"]
+    buf = os.path.join(tmp, "baselines_buffer")
+    os.makedirs(buf, exist_ok=True)
+    thetas = [flat_param_template("ConvNet3D", 3, nc, (im, im), f,
+                                  torch.Generator(device="cuda").manual_seed(s),
+                                  "cuda")[1].cpu().numpy() for s in (0, 1)]
+    TrajectoryBuffer(np.stack(thetas)[None]).save(
+        os.path.join(buf, "replay_buffer_0.npz"))
+    syn_steps = get_preset("MTT").syn_steps
+    want = per_outer_step(syn_steps)
+    res = {}
+    for dtype, iterations in (("bfloat16", c["mtt_iterations"]),
+                              ("float32", 0)):
+        steps, losses = [], []
+
+        def check(out):
+            losses.append(float(out[4]))
+            grads = out[7]
+            bad = [k for k, v in grads.items() if not _finite(v)]
+            if bad or not np.isfinite(losses[-1]):
+                raise AssertionError(f"MTT {dtype}: non-finite {bad or 'loss'}")
+            if not float(out[1]) >= 0.001:
+                raise AssertionError(f"MTT {dtype}: syn_lr {float(out[1])}")
+            check_first_stage_counts(f"MTT {dtype} step", want)
+
+        torch.cuda.reset_peak_memory_stats()
+        with checked_steps(MTTStep, check, steps):
+            run_s, _ = _synced_seconds(lambda: distill_baseline.main(
+                ["--preset", "MTT", "--buffer_path", buf, "--max_start_epoch",
+                 "1", "--compute_dtype", dtype,
+                 *_common_argv(data_path, os.path.join(tmp, f"baselines_mtt_{dtype}"),
+                               iterations, dtype == "bfloat16")],
+                logger=MetricLogger(quiet=True)))
+        row = {"driver_seconds": run_s, "steps": len(steps),
+               "step_seconds": steps, "grand_loss": losses,
+               "syn_steps": syn_steps, "launches_per_step": want,
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 2 ** 30}
+        if len(steps) > 1:
+            row["steps_per_sec"] = (len(steps) - 1) / sum(steps[1:])
+        res[dtype] = row
+    emit({"phase": "baselines_mtt", **res, "ok": True})
+    return res
+
+
+def baselines_coresets(data_path, store):
+    """k-center and herding through ``distill_coreset.main``: every chosen
+    clip is a clip of its label's class; ms per embed chunk of 64 clips."""
+    c = BASELINES
+    res = {}
+    for method in ("k-center", "herding"):
+        chunk_s, select_s = [], []
+        saved = (coreset.real_features, distill_coreset.select_coreset)
+        coreset.real_features = _timed(saved[0], chunk_s)
+
+        def select(*args, **kwargs):
+            reset_first_stage()
+            out = _timed(saved[1], select_s)(*args, **kwargs)
+            # one no-grad forward a chunk, and each class is one chunk
+            check_first_stage_counts(f"coreset {method}",
+                                     first_order(0, c["num_classes"]))
+            return out
+
+        distill_coreset.select_coreset = select
+        try:
+            run_s, (syn, labels, accs) = _synced_seconds(
+                lambda: distill_coreset.main(
+                    ["--dataset", c["dataset"], "--data_path", data_path,
+                     "--method", method, "--num_eval", str(c["num_eval"]),
+                     "--epoch_eval_train", str(c["epoch_eval_train"]),
+                     "--device", "cuda"], logger=MetricLogger(quiet=True)))
+        finally:
+            coreset.real_features, distill_coreset.select_coreset = saved
+        assert labels.tolist() == list(range(c["num_classes"]))
+        for v, k in zip(syn, labels.tolist()):
+            idx = np.nonzero(store.labels == k)[0]
+            clips = store.normalize(torch.as_tensor(
+                np.asarray(store.clips[idx]), device="cuda"))
+            if not any(torch.equal(v, r) for r in clips):
+                raise AssertionError(f"coreset {method}: a clip of class {k} "
+                                     "is not from that class")
+        (acc, _), = accs.values()
+        assert np.isfinite(acc) and 0.0 <= acc <= 1.0, acc
+        res[method] = {"driver_seconds": run_s,
+                       "selection_seconds": select_s[0],
+                       "ms_per_embed_chunk_of_64":
+                           float(np.mean(chunk_s[1:])) * 1e3,
+                       "chunks": len(chunk_s), "accuracy": acc}
+    emit({"phase": "baselines_coresets", **res, "ok": True})
+    return res
+
+
+def _rel(a, ref):
+    a, ref = a.detach().cpu().double(), ref.detach().cpu().double()
+    return float((a - ref).norm() / ref.norm())
+
+
+def check_baselines_card_vs_cpu():
+    """One raw DM step, one S2D-DM step and one raw MTT step, fp32, at 3
+    classes, 64x64x8, from the same inputs, net and draws: the kernels on
+    the card, the plain versions on the CPU. DM: loss within 1e-5
+    relative, gradients and updates within 1e-4 relative norm. MTT: see
+    below."""
+    c = BASELINES_SMALL
+    store = make_synthetic_video_data(**c).train
+    nc, f, im = c["num_classes"], c["frames"], c["im_size"][0]
+    gen = torch.Generator().manual_seed(0)
+    syn = torch.randn(nc, f, im, im, 3, generator=gen)
+    out = {}
+
+    def on(dev, tree):
+        if isinstance(tree, dict):
+            return {k: on(dev, v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [on(dev, v) for v in tree]
+        return tree.to(dev)
+
+    # raw DM
+    runs = {}
+    params = None
+    for dev in ("cpu", "cuda"):
+        tr = dm.make_dm_trainer(store, "ConvNet3D", 1, 4, 1.0, f, device=dev)
+        params = params or tr.fresh_net(torch.Generator().manual_seed(1))
+        tr.fresh_net = lambda g, p=on(dev, params): p
+        state, loss = tr(None, dm.DMState(syn.to(dev), torch.arange(nc, device=dev),
+                                          torch.zeros_like(syn, device=dev)),
+                         np.random.default_rng(2))
+        runs[dev] = (loss, state.momentum, state.syn_images)
+    out["dm"] = {"loss": abs(float(runs["cuda"][0]) / float(runs["cpu"][0]) - 1),
+                 "grad": _rel(runs["cuda"][1], runs["cpu"][1]),
+                 "images": _rel(runs["cuda"][2], runs["cpu"][2])}
+
+    # S2D-DM, frozen static
+    s2d_cfg = S2DConfig(num_classes=nc, frames=f, im_size=(im, im))
+    state0 = init_s2d_state(torch.Generator().manual_seed(3), s2d_cfg, "cpu")
+    draws = torch.randint(0, 2, (2, nc), generator=gen)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = dm.make_s2d_dm_trainer(store, "ConvNet3D", s2d_cfg, 4, 100.0,
+                                    0.01, 0.01, False, f, device=dev)
+        tr.fresh_net = lambda g, p=on(dev, params): p
+        st = on(dev, state0)
+        runs[dev] = tr(None, st, init_s2d_momentum(st),
+                       np.random.default_rng(2), draws=draws.to(dev))
+    cu, cp = runs["cuda"], runs["cpu"]
+    out["s2d_dm"] = {
+        "loss": abs(float(cu[2]) / float(cp[2]) - 1),
+        "grad_dynamic": _rel(cu[1]["dynamic"], cp[1]["dynamic"]),
+        "grad_hal_weight": _rel(cu[1]["hals"][0]["weight"], cp[1]["hals"][0]["weight"]),
+        "grad_hal_bias": _rel(cu[1]["hals"][0]["bias"], cp[1]["hals"][0]["bias"]),
+        "dynamic": _rel(cu[0]["dynamic"], cp[0]["dynamic"]),
+        "hal_weight": _rel(cu[0]["hals"][0]["weight"], cp[0]["hals"][0]["weight"])}
+    for name in ("dm", "s2d_dm"):
+        for k, v in out[name].items():
+            tol = 1e-5 if k == "loss" else 1e-4
+            assert v <= tol, f"{name} card vs CPU: {k} off by {v} > {tol}"
+
+    # raw MTT: the parity phase's 1e-5 (loss) and 1e-3 (gradients) card
+    # against CPU; past 1e-3, a gradient passes if the card is within 3x of
+    # the CPU's own distance from an fp64 CPU step (or 1e-5) and within
+    # MTT_FP64_CAP of fp64: the phase max routes a gradient to whichever of
+    # two near-equal candidates fp32 rounding makes larger, and either
+    # device can be the one that strays
+    out["mtt"] = m = mtt_card_vs_cpu(syn, gen)
+    assert m["card_vs_cpu"]["loss"] <= 1e-5, f"mtt card vs CPU: {m}"
+    for k in ("grad_images", "grad_syn_lr"):
+        card, cpu = m["card_vs_fp64"][k], m["cpu_vs_fp64"][k]
+        assert (m["card_vs_cpu"][k] <= 1e-3 or card
+                <= min(max(3 * cpu, 1e-5), MTT_FP64_CAP)), (
+            f"mtt card vs CPU: {k} off by {m['card_vs_cpu'][k]}, "
+            f"{card} from fp64 against the CPU's {cpu}")
+    emit({"phase": "baselines_card_vs_cpu", "rel_err": out, "ok": True})
+
+
+def mtt_card_vs_cpu(syn, gen):
+    """One raw MTT step (syn_steps=2) fp32 on the card and on the CPU and
+    fp64 on the CPU, from the same inputs, plan and dropout masks: the
+    relative distances of loss and outer gradients, card against CPU and
+    each fp32 device against fp64."""
+    c = BASELINES_SMALL
+    nc, f, im = c["num_classes"], c["frames"], c["im_size"][0]
+    steps = 2
+    _, t0 = flat_param_template("ConvNet3D", 3, nc, (im, im), f,
+                                torch.Generator().manual_seed(4), "cpu")
+    _, t1 = flat_param_template("ConvNet3D", 3, nc, (im, im), f,
+                                torch.Generator().manual_seed(5), "cpu")
+    plan = torch.as_tensor(make_batch_plan(np.random.default_rng(6), nc, nc,
+                                           steps))
+    masks = torch.rand(steps, nc, 1, 1, 1, 128, generator=gen) < 0.5
+    runs = {}
+    for dev, dtype in (("cpu", "float64"), ("cpu", "float32"),
+                       ("cuda", "float32")):
+        dt = getattr(torch, dtype)
+        step = MTTStep("ConvNet3D", 3, nc, (im, im), f, steps, 100.0, 1e-5,
+                       True, dtype, dev)
+        runs[dev, dtype] = step(
+            None, syn.to(dev, dt), torch.arange(nc, device=dev),
+            torch.tensor(0.01, device=dev), torch.zeros_like(syn, device=dev, dtype=dt),
+            torch.zeros((), device=dev), t0.to(dev, dt), t1.to(dev, dt),
+            plan.to(dev), keep_masks=masks.to(dev))
+
+    def dist(a, b):
+        return {"loss": abs(float(a[4]) / float(b[4]) - 1),
+                "grad_images": _rel(a[7]["images"], b[7]["images"]),
+                "grad_syn_lr": _rel(a[7]["syn_lr"], b[7]["syn_lr"])}
+
+    cu, cp, f64 = (runs["cuda", "float32"], runs["cpu", "float32"],
+                   runs["cpu", "float64"])
+    return {"card_vs_cpu": dist(cu, cp), "card_vs_fp64": dist(cu, f64),
+            "cpu_vs_fp64": dist(cp, f64)}
+
+
+def phase_baselines(tmp):
+    """The baselines at full width through their drivers (DM, S2D-DM, raw
+    MTT, k-center and herding), from one store, then the card against the
+    CPU at a small size."""
+    t0 = time.perf_counter()
+    data_path = packed_synthetic(tmp, BASELINES["synthetic"],
+                                 BASELINES["dataset"], "baselines_data")
+    store = load_packed(os.path.join(
+        data_path, f"{BASELINES['dataset']}_packed")).train
+    emit({"phase": "baselines_store", "dataset": BASELINES["dataset"],
+          "seconds": time.perf_counter() - t0,
+          "train_clips": len(store), "gb": store.clips.nbytes / 1e9})
+    baselines_dm(data_path, tmp, store)
+    baselines_s2d_dm(data_path, tmp)
+    baselines_mtt(data_path, tmp)
+    baselines_coresets(data_path, store)
+    check_baselines_card_vs_cpu()
+    emit({"phase": "baselines", "seconds": time.perf_counter() - t0,
+          "ok": True})
+
+
 def main():
     use_exact_fp32()
     phase_build()
@@ -1196,6 +1752,7 @@ def main():
         launches["hal_fused"] = phase_pipeline(tmp)
         phase_expert()
         phase_static(tmp)
+        phase_baselines(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, row in rows.items():

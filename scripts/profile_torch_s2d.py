@@ -1,9 +1,11 @@
 """Where the device time of one S2D-MTT outer step, of one evaluation
-training step, or of one static-learning (DC) step of the PyTorch port goes.
+training step, of one static-learning (DC) step or of one DM step of the
+PyTorch port goes.
 
     python3 scripts/profile_torch_s2d.py [--dtype bfloat16] [--trace out.json]
     python3 scripts/profile_torch_s2d.py --phase eval --steps 5
     python3 scripts/profile_torch_s2d.py --phase match   # or --phase inner
+    python3 scripts/profile_torch_s2d.py --phase dm      # or --phase s2d_dm
 
 ``--phase distill`` (the default) runs ``S2DMTTStep`` at the slice's full
 width (ConvNet3D 64/128/128, 50 classes, 112x112x16, syn_steps=10, frozen
@@ -25,8 +27,16 @@ learning at the ``static`` phase's width of ``chip_smoke.py`` (ConvNet
 gradient-matching steps (``DCTrainer.match_step``, batch_real=64, random
 uint8 real images), or ``--steps`` SGD steps of ``DCTrainer.inner_train``
 on the 500 synthetic images, after one warm-up; they have no first stage,
-so the first-stage fields are null. ``--trace`` also writes the Chrome
-trace of the profiled steps.
+so the first-stage fields are null. ``--phase dm`` and ``--phase s2d_dm``
+profile ``--steps`` DM steps (``distill.dm.DMTrainer``, the DM preset's
+raw tensor, or ``S2DDMTrainer``, ``s2d_DM_ms``: frozen static, fp32
+compose) at the ``baselines`` phase's width of ``chip_smoke.py``
+(ConvNet3D, 50 classes, 112x112x16, batch_real=64 random uint8 clips a
+class, fp32 unless ``--dtype`` says otherwise) after one warm-up step;
+``ranges_ms_per_step`` gives the real-clip embed's device time
+(``dm_real_embed``), the rest of the step being the synthetic embed, its
+backward and the update. ``--trace`` also writes the Chrome trace of the
+profiled steps.
 """
 
 from __future__ import annotations
@@ -47,7 +57,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from video_distillation_torch.data.meta import (  # noqa: E402
     IMAGENET_MEAN, IMAGENET_STD, DatasetMeta)
 from video_distillation_torch.data.store import ClipStore  # noqa: E402
-from video_distillation_torch.distill import dc  # noqa: E402
+from video_distillation_torch.distill import dc, dm  # noqa: E402
 from video_distillation_torch.distill.evaluate import (  # noqa: E402
     EvalConfig, train_synset)
 from video_distillation_torch.distill.mtt import (  # noqa: E402
@@ -68,6 +78,10 @@ FAMILIES = (
     ("elementwise", r"elementwise|vectorized|unrolled|Elementwise|fill|copy"),
     ("memcpy / memset", r"Memcpy|Memset"),
 )
+
+
+# the profiler range around a DM step's real-clip embed
+REAL_EMBED = "dm_real_embed"
 
 
 def family(name: str) -> str:
@@ -148,13 +162,17 @@ def first_stage_conv_kernels(dtype, batch, frames, im):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phase", default="distill",
-                   choices=("distill", "eval", "match", "inner"))
-    p.add_argument("--dtype", default="bfloat16",
-                   choices=("bfloat16", "float32"),
-                   help="the distillation's compute dtype (eval is fp32)")
+                   choices=("distill", "eval", "match", "inner", "dm",
+                            "s2d_dm"))
+    p.add_argument("--dtype", default=None, choices=("bfloat16", "float32"),
+                   help="the compute dtype: distill's default bfloat16, "
+                        "dm's and s2d_dm's float32 (their presets'); eval, "
+                        "match and inner are fp32")
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--trace", default=None)
     args = p.parse_args(argv)
+    dm_phase = args.phase in ("dm", "s2d_dm")
+    args.dtype = args.dtype or ("float32" if dm_phase else "bfloat16")
 
     dev = resolve_device("cuda")
     use_exact_fp32()
@@ -214,6 +232,39 @@ def main(argv=None):
             return float(p["head.weight"].norm())
         return run, lambda: run(1)
 
+    def distribution_matching(s2d, batch_real=64):
+        """(work, warm-up) for DM steps on random uint8 real clips."""
+        dmeta = DatasetMeta(name="profile_dm", channel=3, im_size=im,
+                            num_classes=nc, mean=IMAGENET_MEAN,
+                            std=IMAGENET_STD, frames=f)
+        clips = rng.integers(0, 256, (nc * batch_real, f, *im, 3), np.uint8)
+        store = ClipStore(clips, np.repeat(np.arange(nc), batch_real), dmeta)
+        if s2d:
+            tr = dm.make_s2d_dm_trainer(store, "ConvNet3D", cfg, batch_real,
+                                        100.0, 0.01, 0.01, False, f,
+                                        args.dtype, device=dev)
+            carry = [state, init_s2d_momentum(state)]
+        else:
+            tr = dm.make_dm_trainer(store, "ConvNet3D", 1, batch_real, 1.0, f,
+                                    args.dtype, device=dev)
+            syn = torch.randn((nc, f, *im, 3), generator=gen, device=dev)
+            carry = [dm.DMState(syn, torch.arange(nc, device=dev),
+                                torch.zeros_like(syn))]
+        real_feats = tr.real_feats
+
+        def marked(*a):
+            with torch.profiler.record_function(REAL_EMBED):
+                return real_feats(*a)
+        tr.real_feats = marked
+
+        def dm_step(it):
+            g = torch.Generator(device=dev).manual_seed(it)
+            out = tr(g, *carry, rng)
+            carry[:] = out[:-1]
+            return float(out[-1])
+        return (lambda n: [dm_step(1 + i) for i in range(n)][-1],
+                lambda: dm_step(0))
+
     if args.phase == "distill":
         work = lambda: [one(2 + it) for it in range(args.steps)][-1]  # noqa: E731
         for it in range(2):
@@ -222,7 +273,8 @@ def main(argv=None):
         work = lambda: evaluation(args.steps)  # noqa: E731
         evaluation(2)
     else:
-        run, warm_up = static_learning(args.phase)
+        run, warm_up = (distribution_matching(args.phase == "s2d_dm")
+                        if dm_phase else static_learning(args.phase))
         work = lambda: run(args.steps)  # noqa: E731
         warm_up()
     torch.cuda.synchronize()
@@ -239,7 +291,9 @@ def main(argv=None):
     kernels = {}
     for evt in prof.key_averages():
         us = device_us(evt)
-        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range shows as a device event too: not a kernel
+        if (us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.key == REAL_EMBED):
             continue
         k = kernels.setdefault(evt.key, [0.0, 0])
         k[0] += us / 1e3 / args.steps
@@ -254,13 +308,19 @@ def main(argv=None):
     convs = conv_ops(prof, args.steps)
     first_kernels = fams.get("first-stage kernels", 0.0)
     first_convs = sum(r["ms_per_step"] for r in convs if r["input_rank"] == 4)
-    staged = args.phase in ("distill", "eval")  # ConvNet3D's first stage
+    staged = args.phase in ("distill", "eval") or dm_phase  # ConvNet3D
+    ranges = {}
+    for evt in prof.key_averages():  # the range's CPU and device events
+        if evt.key == REAL_EMBED:
+            ranges[evt.key] = max(ranges.get(evt.key, 0.0), device_us(
+                evt, self_only=False) / 1e3 / args.steps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({
         "card": smi, "phase": args.phase,
-        "compute_dtype": args.dtype if args.phase == "distill" else "float32",
+        "compute_dtype": (args.dtype if args.phase == "distill" or dm_phase
+                          else "float32"),
         "model": "ConvNet3D" if staged else "ConvNet",
         "profiled_steps": args.steps,
         "wall_ms_per_step": wall * 1e3, "device_ms_per_step": busy,
@@ -280,7 +340,9 @@ def main(argv=None):
             "total": first_kernels + first_convs} if staged else None,
         "first_stage_gemm": first_stage_conv_kernels(
             torch.bfloat16 if args.phase == "distill" and args.dtype == "bfloat16"
-            else torch.float32, nc, f, im[0]) if staged else None,
+            else torch.float32, nc, f, im[0])
+        if args.phase in ("distill", "eval") else None,
+        "ranges_ms_per_step": ranges or None,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
     }), flush=True)
     if args.trace:

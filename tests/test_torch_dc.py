@@ -160,12 +160,12 @@ def test_single_frame_store_and_real_init_are_jax_bytes():
     jsyn, jlab = jax_init_raw(jax.random.PRNGKey(0), jst, 10, 1, "real",
                               np.random.default_rng(5))
     syn, lab = init_synthetic_raw(None, pst, 10, 1, "real",
-                                  np.random.default_rng(5))
+                                  np.random.default_rng(5), device="cpu")
     assert syn.dtype == torch.float32
     np.testing.assert_array_equal(syn.numpy(), np.asarray(jsyn))
     np.testing.assert_array_equal(lab.numpy(), np.asarray(jlab))
     noise, _ = init_synthetic_raw(torch.Generator().manual_seed(0), pst, 2, 1,
-                                  "noise")
+                                  "noise", device="cpu")
     assert noise.shape == (NC * 2, 1, IM, IM, 3)
 
 

@@ -123,7 +123,7 @@ def test_run_resumes_from_its_checkpoint(jax_buffer_dir, tmp_path):
 
 
 @pytest.mark.parametrize("fields,error,match", [
-    ({"method": "DM"}, NotImplementedError, "A.9"),
+    ({"method": "DM", "shard_store": True}, NotImplementedError, "A.16"),
     ({"startIt": 0, "vmap_eval": True}, NotImplementedError, "A.7b"),
     ({"device": "cuda"}, RuntimeError, "CUDA is not available"),
 ])

@@ -52,9 +52,11 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 43
-    # static learning and packing, which need no JAX either
+    assert len(names) >= 46
+    # static learning, packing and the baselines, which need no JAX either
     assert {f"video_distillation_torch.{m}" for m in (
         "models.convnet2d", "ops.losses", "distill.dc", "distill.dm",
         "drivers.distill_static", "data.packer", "drivers.pack",
-        "ingest.extract_k400", "ingest.extract_ssv2", "ingest.resize")} <= names
+        "ingest.extract_k400", "ingest.extract_ssv2", "ingest.resize",
+        "distill.coreset", "drivers.distill_baseline",
+        "drivers.distill_coreset")} <= names

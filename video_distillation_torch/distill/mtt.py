@@ -1,13 +1,14 @@
-"""MTT — Matching Training Trajectories, for the S2D parameterization.
+"""MTT — Matching Training Trajectories, on raw tensors and for S2D.
 
 Port of ``video_distillation_tpu/distill/mtt.py`` (the reference's MTT
 branches, distill_s2d_ms.py:113-310): sample an expert trajectory segment
 (θ_start = traj[e], θ_target = traj[e + expert_epochs]); run ``syn_steps``
 SGD steps ``θ ← θ − syn_lr·∇ce`` on synthetic batches from θ_start; the
 grand loss ‖θ_K − θ*‖²/‖θ_0 − θ*‖² is differentiated through the whole
-unroll into the synthetic parameters. S2D memories and the hallucinator
-use SGD with momentum 0.95, the learnable ``syn_lr`` momentum 0.9, and
-``syn_lr`` is clipped at 0.001 after each update.
+unroll into the synthetic parameters. Raw synthetic images and their
+learnable ``syn_lr`` use SGD with momentum 0.5 (``MTTStep``); S2D memories
+and the hallucinator use momentum 0.95 and the learnable ``syn_lr`` 0.9
+(``S2DMTTStep``); ``syn_lr`` is clipped at 0.001 after each update.
 
 The second order comes from ``torch.autograd.grad(..., create_graph=True)``
 on each inner step, the reference's own method: every inner step's graph
@@ -37,7 +38,8 @@ from torch.func import functional_call
 
 from ..models.registry import create_model
 from .params import layout_for
-from .s2d import S2DConfig, distill_slots, hallucinate
+from .s2d import (S2DConfig, distill_slots, grad_leaves, hallucinate,
+                  momentum_sgd, state_grads)
 
 # float64 is for references only (chip_smoke.py's parity phase)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -121,6 +123,56 @@ class MTTCore:
         return param_loss / param_dist, param_loss, param_dist
 
 
+class MTTStep:
+    """One MTT outer step on a raw synthetic tensor (``_build_mtt_step``,
+    mtt.py:292-331).
+
+    ``step(generator, syn_images, syn_labels, syn_lr, mom_img, mom_lr,
+    theta_start, theta_target, plan)`` returns ``(syn_images, syn_lr,
+    mom_img, mom_lr, loss, param_loss, param_dist)`` as the JAX step does,
+    plus the outer gradients (``{'images', 'syn_lr'}``). The plan's rows of
+    ``syn_images`` are gathered in the compute dtype; the images and the
+    learnable lr both take SGD with momentum 0.5 (distill_baseline.py:
+    107-108; S2D's lr takes 0.9). The inputs are not modified."""
+
+    def __init__(self, model_name: str, channel: int, num_classes: int,
+                 im_size, frames: int, syn_steps: int, lr_img: float,
+                 lr_lr: float, train_lr: bool, compute_dtype: str, device):
+        self.core = MTTCore(model_name, channel, num_classes, tuple(im_size),
+                            frames, syn_steps, compute_dtype, device)
+        self.lr_img, self.lr_lr, self.train_lr = lr_img, lr_lr, train_lr
+
+    def loss(self, syn_images, syn_labels, syn_lr, theta_start, theta_target,
+             plan, generator=None, keep_masks=None):
+        """Grand loss (and its two terms) as a differentiable function of
+        the synthetic images and syn_lr."""
+        w = (plan >= 0).float()
+        safe = plan.clamp_min(0).long()
+        syn2d = syn_images.to(self.core.cdt).reshape(syn_images.shape[0], -1)
+        batches_x = take_rows(syn2d, safe.reshape(-1)).reshape(
+            tuple(safe.shape) + tuple(syn_images.shape[1:]))
+        return self.core.unroll(theta_start, theta_target, syn_lr, batches_x,
+                                syn_labels[safe], w, keep_masks, generator)
+
+    def __call__(self, generator, syn_images, syn_labels, syn_lr, mom_img,
+                 mom_lr, theta_start, theta_target, plan, keep_masks=None):
+        syn = syn_images.detach().requires_grad_(True)
+        lr = torch.as_tensor(syn_lr, dtype=torch.float32,
+                             device=syn.device).detach().requires_grad_(True)
+        loss, ploss, pdist = self.loss(syn, syn_labels, lr, theta_start,
+                                       theta_target, plan, generator,
+                                       keep_masks)
+        g_img, g_lr = torch.autograd.grad(loss, (syn, lr))
+        with torch.no_grad():
+            mom_img = 0.5 * mom_img + g_img
+            new_syn = syn_images - self.lr_img * mom_img
+        new_lr, mom_lr = _syn_lr_update(syn_lr, mom_lr, g_lr, self.train_lr,
+                                        self.lr_lr, 0.5)
+        return (new_syn, new_lr, mom_img, mom_lr, loss.detach(),
+                ploss.detach(), pdist.detach(),
+                {"images": g_img, "syn_lr": g_lr})
+
+
 def s2d_slot_draws(plan: torch.Tensor, s2d_cfg: S2DConfig,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Sequence] = None):
@@ -186,56 +238,34 @@ class S2DMTTStep:
     def __call__(self, generator, state, syn_lr, moms, mom_lr, theta_start,
                  theta_target, plan, draws=None, keep_masks=None):
         hp = self.hyper
-        leaf = {"static": state["static"].detach().requires_grad_(hp.train_static),
-                "dynamic": state["dynamic"].detach().requires_grad_(True),
-                "hals": [{k: v.detach().requires_grad_(True) for k, v in p.items()}
-                         for p in state["hals"]]}
+        leaf = grad_leaves(state, hp.train_static)
         lr = torch.as_tensor(syn_lr, dtype=torch.float32,
                              device=leaf["dynamic"].device).detach().requires_grad_(True)
         loss, ploss, pdist = self.loss(leaf, lr, theta_start, theta_target,
                                        plan, generator, draws, keep_masks)
-        hal_names = [sorted(p) for p in leaf["hals"]]
-        inputs = [leaf["dynamic"], lr]
-        inputs += [p[k] for p, names in zip(leaf["hals"], hal_names) for k in names]
-        if hp.train_static:
-            inputs.append(leaf["static"])
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-        g = {"dynamic": grads[0], "syn_lr": grads[1]}
-        it = iter(grads[2:])
-        g["hals"] = [{k: _zero_if_none(next(it), p[k]) for k in names}
-                     for p, names in zip(leaf["hals"], hal_names)]
-        if hp.train_static:
-            g["static"] = next(it)
-
-        with torch.no_grad():
-            new_state, new_moms = {}, {}
-            for name, lr_x, train in (("static", hp.lr_static, hp.train_static),
-                                      ("dynamic", hp.lr_dynamic, True),
-                                      ("hals", hp.lr_hal, True)):
-                if not train:
-                    new_state[name] = state[name]
-                    new_moms[name] = moms[name]
-                    continue
-                if name == "hals":
-                    m = [{k: 0.95 * mm[k] + gg[k] for k in mm}
-                         for mm, gg in zip(moms["hals"], g["hals"])]
-                    new_state[name] = [{k: p[k] - lr_x * mm[k] for k in p}
-                                       for p, mm in zip(state["hals"], m)]
-                else:
-                    m = 0.95 * moms[name] + g[name]
-                    new_state[name] = state[name] - lr_x * m
-                new_moms[name] = m
-            new_lr = torch.as_tensor(syn_lr, dtype=torch.float32,
-                                     device=lr.device)
-            if hp.train_lr:
-                mom_lr = 0.9 * mom_lr + g["syn_lr"]
-                new_lr = torch.clamp(new_lr - hp.lr_lr * mom_lr, min=0.001)
+        g, (g_lr,) = state_grads(loss, leaf, hp.train_static, extra=(lr,))
+        g["syn_lr"] = g_lr
+        new_state, new_moms = momentum_sgd(
+            state, moms, g, {"static": hp.lr_static, "dynamic": hp.lr_dynamic,
+                             "hals": hp.lr_hal},
+            {"static": hp.train_static, "dynamic": True, "hals": True}, 0.95)
+        new_lr, mom_lr = _syn_lr_update(syn_lr, mom_lr, g_lr, hp.train_lr,
+                                        hp.lr_lr, 0.9)
         return (new_state, new_lr, new_moms, mom_lr, loss.detach(),
                 ploss.detach(), pdist.detach(), g)
 
 
-def _zero_if_none(g, like):
-    return torch.zeros_like(like) if g is None else g
+@torch.no_grad()
+def _syn_lr_update(syn_lr, mom_lr, g_lr, train_lr: bool, lr_lr: float,
+                   mu: float):
+    """The learnable lr's SGD step with momentum ``mu``, clipped at 0.001
+    (distill_baseline.py:283); unchanged unless ``train_lr``. Returns
+    (syn_lr, mom_lr)."""
+    new_lr = torch.as_tensor(syn_lr, dtype=torch.float32, device=g_lr.device)
+    if train_lr:
+        mom_lr = mu * mom_lr + g_lr
+        new_lr = torch.clamp(new_lr - lr_lr * mom_lr, min=0.001)
+    return new_lr, mom_lr
 
 
 @dataclasses.dataclass

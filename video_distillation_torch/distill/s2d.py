@@ -67,6 +67,63 @@ def init_s2d_momentum(state):
                      for p in state["hals"]]}
 
 
+def grad_leaves(state, train_static: bool):
+    """A detached copy of the S2D state whose trained groups require a
+    gradient (a frozen static does not: its backward chain is cut)."""
+    return {"static": state["static"].detach().requires_grad_(train_static),
+            "dynamic": state["dynamic"].detach().requires_grad_(True),
+            "hals": [{k: v.detach().requires_grad_(True) for k, v in h.items()}
+                     for h in state["hals"]]}
+
+
+def state_grads(loss, leaf, train_static: bool, extra: Sequence = ()):
+    """Gradients of ``loss`` into the trained groups of ``leaf`` (from
+    ``grad_leaves``), as a dict with the state's structure ('static' only
+    when trained; a hallucinator that took no part gets zeros), and into
+    each tensor of ``extra``."""
+    names = [sorted(h) for h in leaf["hals"]]
+    inputs = [leaf["dynamic"], *extra]
+    inputs += [h[k] for h, ks in zip(leaf["hals"], names) for k in ks]
+    if train_static:
+        inputs.append(leaf["static"])
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    rest = iter(grads[1 + len(extra):])
+    g = {"dynamic": grads[0],
+         "hals": [{k: _zero_if_none(next(rest), h[k]) for k in ks}
+                  for h, ks in zip(leaf["hals"], names)]}
+    if train_static:
+        g["static"] = next(rest)
+    return g, list(grads[1:1 + len(extra)])
+
+
+def _zero_if_none(g, like):
+    return torch.zeros_like(like) if g is None else g
+
+
+@torch.no_grad()
+def momentum_sgd(state, moms, grads, lrs, trained, mu: float):
+    """SGD with momentum ``mu`` on each trained group of the S2D state
+    ('static', 'dynamic', 'hals'), each at its own rate ``lrs[group]``
+    (distill_s2d_ms.py:105-107). An untrained group and its momentum are
+    returned as they are. Returns (state, moms)."""
+    new_state, new_moms = {}, {}
+    for name in ("static", "dynamic", "hals"):
+        if not trained[name]:
+            new_state[name], new_moms[name] = state[name], moms[name]
+            continue
+        lr = lrs[name]
+        if name == "hals":
+            m = [{k: mu * mm[k] + gg[k] for k in mm}
+                 for mm, gg in zip(moms["hals"], grads["hals"])]
+            new_state[name] = [{k: p[k] - lr * mm[k] for k in p}
+                               for p, mm in zip(state["hals"], m)]
+        else:
+            m = mu * moms[name] + grads[name]
+            new_state[name] = state[name] - lr * m
+        new_moms[name] = m
+    return new_state, new_moms
+
+
 def hallucinate(hal_params, static, dynamic, mode: str = "concat",
                 dtype: Optional[torch.dtype] = None):
     """Compose videos: static (B,H,W,3) + dynamic (B,F,H,W,1) ->

@@ -23,6 +23,29 @@ from ..models.registry import get_eval_pool
 from ..utils.logging import MetricLogger
 
 
+# distillation drivers checkpoint every this many iterations (the JAX
+# package's cadence); tests shorten it
+CHECKPOINT_EVERY = 1000
+# ``step_generator`` streams beside the steps' own (0, 1, ...): the
+# evaluation at iteration it draws from it + EVAL_STREAM, a noise
+# initialisation from INIT_STREAM
+EVAL_STREAM = 10_000_000
+INIT_STREAM = 20_000_000
+
+
+def checkpoint_due(it: int) -> bool:
+    return it % CHECKPOINT_EVERY == 0 and it > 0
+
+
+def check_second_order(cfg):
+    """MTT's outer backward keeps every inner step's graph ('full');
+    'remat' raises."""
+    if cfg.second_order == "remat":
+        raise NotImplementedError(
+            "second_order='remat': the port keeps every inner step's graph "
+            "('full'); checkpointing per inner step is a ROADMAP item")
+
+
 def parse_config_args(description: str, argv=None,
                       default_preset: Optional[str] = None,
                       config_cls=DistillConfig):

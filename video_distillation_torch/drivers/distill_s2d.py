@@ -14,8 +14,15 @@ ConvNet3Ds are trained on the multi-static synthetic set at the learned
 ``syn_lr`` and tested; on a new best (and every 1000 iterations) the
 artifacts ``dynamic_{it}.npy``, ``hal_{it}.npz`` (the JAX package's keys
 and layout), ``images_{it}.npy`` (when the static memory is trained), the
-``*_best`` files and PNG grids are written. ``method=DM`` is not ported
-yet (ROADMAP A.9).
+``*_best`` files and PNG grids are written.
+
+``method=DM`` (the ``s2d_DM_ms`` presets) distils by distribution
+matching instead (``distill/dm.py:S2DDMTrainer``), with no buffer; its
+evaluation trains at ``syn_lr``, which DM leaves at ``lr_teacher``, as the
+JAX driver does::
+
+    python -m video_distillation_torch.drivers.distill_s2d \
+        --preset s2d_DM_ms --dataset miniUCF101 [--device cuda]
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from ..config import DistillConfig
 from ..distill.buffer import load_buffers
+from ..distill.dm import make_s2d_dm_trainer
 from ..distill.mtt import ExpertSampler, S2DHyper, S2DMTTStep, make_batch_plan
 from ..distill.params import hal_to_jax
 from ..distill.s2d import (S2DConfig, compose_synthetic, init_s2d_momentum,
@@ -37,9 +45,8 @@ from ..utils.checkpoint import (restore_state, save_artifact,
 from ..utils.device import resolve_device, step_generator, use_exact_fp32
 from ..utils.logging import MetricLogger, StepTimer
 from ..utils.visualize import save_s2d_grids
-from .common import EvalTracker, load_data, parse_config_args
-
-EVAL_STREAM = 10_000_000  # evaluation at iteration it draws from it + this
+from .common import (EVAL_STREAM, EvalTracker, check_second_order,
+                     checkpoint_due, load_data, parse_config_args)
 
 
 def build_s2d(cfg: DistillConfig, meta, device):
@@ -60,17 +67,14 @@ def build_s2d(cfg: DistillConfig, meta, device):
 def run(cfg: DistillConfig, data, logger: MetricLogger,
         step_hook: Optional[Callable] = None):
     """Distil; returns {'state', 'syn_lr'}. ``step_hook(it, out)``, if
-    given, is called after every outer step with the step's outputs."""
+    given, is called after every outer step with the step's outputs
+    (``S2DMTTStep``'s, or DM's ``(state, moms, loss)``)."""
     device = resolve_device(cfg.device)
     use_exact_fp32()
-    if cfg.method == "DM":
-        raise NotImplementedError("S2D-DM is not ported yet (ROADMAP A.9)")
-    if cfg.method != "MTT":
+    if cfg.method not in ("DM", "MTT"):
         raise NotImplementedError(cfg.method)
-    if cfg.second_order == "remat":
-        raise NotImplementedError(
-            "second_order='remat': the port keeps every inner step's graph "
-            "('full'); checkpointing per inner step is a ROADMAP item")
+    if cfg.method == "MTT":
+        check_second_order(cfg)
     rng = np.random.default_rng(cfg.seed)
     meta = data.meta
     s2d_cfg, state = build_s2d(cfg, meta, device)
@@ -119,6 +123,39 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
 
     tracker = EvalTracker(cfg, data, logger, save_dir, save)
     timer = StepTimer()
+
+    def evaluate(it):
+        if tracker.should_eval(it):
+            tracker.maybe_eval(
+                it, step_generator(cfg.seed, EVAL_STREAM + it, device), None,
+                None, float(holder["syn_lr"]), s2d_cfg=s2d_cfg,
+                s2d_state=holder["state"])
+
+    def checkpoint(it):
+        if checkpoint_due(it):
+            save_state(ckpt_dir, {"state": holder["state"], "moms": moms,
+                                  "syn_lr": holder["syn_lr"],
+                                  "mom_lr": mom_lr}, it, rng)
+
+    if cfg.method == "DM":
+        trainer = make_s2d_dm_trainer(
+            data.train, cfg.model, s2d_cfg, cfg.batch_real, cfg.lr_static,
+            cfg.lr_dynamic, cfg.lr_hal, not cfg.no_train_static, cfg.frames,
+            cfg.compute_dtype, cfg.shard_store, device)
+        for it in range(start_it, cfg.Iteration + 1):
+            evaluate(it)
+            out = trainer(step_generator(cfg.seed, it, device),
+                          holder["state"], moms, rng)
+            holder["state"], moms = out[:2]
+            timer.tick()
+            if step_hook is not None:
+                step_hook(it, out)
+            if it % 100 == 0:
+                logger.log({"Loss": float(out[2]) / meta.num_classes,
+                            "steps_per_sec": timer.rate()}, step=it)
+            checkpoint(it)
+        return holder
+
     buffers = load_buffers(cfg.buffer_path)
     sampler = ExpertSampler(buffers, rng)
     n_syn = meta.num_classes * cfg.vpc
@@ -139,11 +176,7 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
 
     seg = segment()
     for it in range(start_it, cfg.Iteration + 1):
-        if tracker.should_eval(it):
-            tracker.maybe_eval(
-                it, step_generator(cfg.seed, EVAL_STREAM + it, device), None,
-                None, float(holder["syn_lr"]), s2d_cfg=s2d_cfg,
-                s2d_state=holder["state"])
+        evaluate(it)
         theta0, theta1, start_epoch = seg
         plan = torch.as_tensor(make_batch_plan(rng, n_syn, batch_syn,
                                                cfg.syn_steps), device=device)
@@ -159,10 +192,7 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
                         "Start_Epoch": start_epoch,
                         "Synthetic_LR": float(holder["syn_lr"]),
                         "steps_per_sec": timer.rate()}, step=it)
-        if it % 1000 == 0 and it > 0:
-            save_state(ckpt_dir, {"state": holder["state"], "moms": moms,
-                                  "syn_lr": holder["syn_lr"],
-                                  "mom_lr": mom_lr}, it, rng)
+        checkpoint(it)
     return holder
 
 
@@ -173,8 +203,9 @@ def main(argv=None):
     data = load_data(cfg)
     logger = MetricLogger(log_dir=cfg.save_path,
                           run_name=f"s2d_{cfg.method}_{cfg.dataset}")
-    run(cfg, data, logger)
+    holder = run(cfg, data, logger)
     logger.finish()
+    return holder
 
 
 if __name__ == "__main__":

@@ -82,6 +82,11 @@ class ConvNet3D(nn.Module):
                                         padding=(1, 3, 3), device=device))
             cin = feats
         self.head = nn.Conv3d(cin, num_classes, 1, device=device)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """A fresh net: torch-default convs and head from ``generator``."""
         for m in (*self.convs, self.head):
             init_conv_(m, generator)
 
