@@ -130,18 +130,43 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              per class. Losses and gradients finite, the learned sets moved,
              syn_lr >= 0.001, every chosen clip from its class, ``hal_fused``
              once per evaluation training step; ms per step (real embed and
-             the rest), steps/s, ms per embed chunk, peak memory. Then one
-             raw DM, one S2D-DM and one raw MTT step at 3 classes, 64x64x8,
-             fp32, on the card against the CPU from the same inputs, net and
-             draws: DM losses within 1e-5 relative, gradients and updates
-             within 1e-4 (relative norm); MTT's loss within 1e-5 and its
-             gradients within 1e-3, or, past that, the card's distance from
-             an fp64 CPU step within 3x of the CPU's (or 1e-5) and within
-             1e-2.
+             the rest), steps/s, ms per embed chunk, peak memory. A second
+             S2D-DM run at lr_dynamic = lr_hal = 1e-4 (ROADMAP C.12), 10
+             steps: the loss of a fixed probe net and real batch must fall.
+             Then one raw DM, one S2D-DM and one raw MTT step at 3 classes,
+             64x64x8, fp32, on the card against the CPU from the same
+             inputs, net and draws: DM losses within 1e-5 relative,
+             gradients and updates within 1e-4 (relative norm); raw MTT over
+             9 draws, each against an fp64 CPU step: the loss within 1e-5
+             card against CPU, and each fp32 device's outer gradients within
+             1e-5 of fp64, or within 1e-2 where a max of that device's
+             forward (the phase max, a later max-pool) picked another winner
+             than the fp64 step's (ROADMAP C.13).
+11. frepo  — FRePo at full width through ``drivers.distill_frepo.main`` on
+             the baselines' store, with the driver's defaults (ConvNet3D,
+             ppc=dpc=1, n_hal=1, 10 pool nets, 100 online updates,
+             batch_real 512, lr_d 1e2), fp32: 3 iterations and one
+             evaluation at the last (one net of 10 epochs; the driver: 3 of
+             500). Each step runs with the launch counts set to 0 just before
+             it and checked just after: pack and phase_argmax once per real
+             chunk and twice more, phase_scatter twice, unpack once, select
+             never, each ``hal_conv`` kernel and ``hal_fused`` once. The
+             loss finite; the dynamic memory and the hallucinator moved, the
+             static bit-equal to its initial value, one pool step an
+             iteration; the KRR and NN accuracies in [0, 1]; the evaluation
+             launches ``hal_fused`` once (``compose_eval``) and no other
+             ``hal_*`` kernel. ms per step, the real embed's, the synthetic
+             side's and the pool step's; the KRR and the NN evaluation's
+             seconds; peak memory. Then one proto step and one pool step at
+             3 classes, 64x64x8, fp32 on the card and on the CPU against an
+             fp64 CPU step from the same inputs and draws: the loss and
+             every gradient within 1e-4 of fp64, or within 1e-2 if a max
+             picked another winner than fp64's.
 
 Then the ``kernels`` line (launch counts: the three ``hal_conv`` and the
 five first-stage kernels from the bf16 slice run, ``hal_fused`` from the
-pipeline run), the card's name and power limit, and the ``ok`` line.
+pipeline run; the other paths' counts are in their phases' lines), the
+card's name and power limit, and the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -168,7 +193,8 @@ from video_distillation_torch.data.store import (  # noqa: E402
     load_packed, save_packed)
 from video_distillation_torch.data.synthetic import (  # noqa: E402
     make_synthetic_video_data, synthetic_kwargs_from_name)
-from video_distillation_torch.distill import coreset, dc, dm  # noqa: E402
+from video_distillation_torch.distill import (  # noqa: E402
+    coreset, dc, dm, frepo)
 from video_distillation_torch.distill.buffer import (  # noqa: E402
     ExpertDraws, train_expert)
 from video_distillation_torch.distill.evaluate import (  # noqa: E402
@@ -182,17 +208,19 @@ from video_distillation_torch.distill.dm import \
     init_synthetic_raw  # noqa: E402
 from video_distillation_torch.drivers import buffer as buffer_driver  # noqa: E402
 from video_distillation_torch.drivers import (  # noqa: E402
-    distill_baseline, distill_coreset, distill_static)
+    distill_baseline, distill_coreset, distill_frepo, distill_static)
 from video_distillation_torch.drivers.common import load_data  # noqa: E402
 from video_distillation_torch.drivers.distill_s2d import (  # noqa: E402
     build_s2d, run)
+from video_distillation_torch.models import convnet3d  # noqa: E402
 from video_distillation_torch.models.hallucinator import \
     init_hallucinator  # noqa: E402
 from video_distillation_torch.ops import build, hal_conv as hc  # noqa: E402
 from video_distillation_torch.ops import hal_fused as hf  # noqa: E402
 from video_distillation_torch.ops import phase_trio as pt  # noqa: E402
 from video_distillation_torch.ops import s2d2_move as sm  # noqa: E402
-from video_distillation_torch.utils.device import use_exact_fp32  # noqa: E402
+from video_distillation_torch.utils.device import (  # noqa: E402
+    step_generator, use_exact_fp32)
 from video_distillation_torch.utils.logging import MetricLogger  # noqa: E402
 
 SOURCE = "video_distillation_torch/csrc/hal_conv.cu"
@@ -1327,11 +1355,94 @@ BASELINES = dict(synthetic="synthetic_c50_n64_t1_f16_im112",
                  dataset="baselinesmoke_c50_n64_t1_f16_im112",
                  num_classes=50, frames=16, im=112, dm_iterations=3,
                  mtt_iterations=3, num_eval=1, epoch_eval_train=10, seed=0)
-# a raw MTT gradient past 1e-3 of the CPU's stays within this of fp64
+# an fp32 step whose maxes picked another winner than fp64's somewhere
+# stays within this of fp64
 MTT_FP64_CAP = 1e-2
+# ROADMAP C.13: an fp32 step whose forward picks the same winner in every
+# max (the phase max, the later max-pools) as the fp64 step stays within
+# FP64_NO_TIE of it (relative norm); one that picks another winner
+# somewhere (a "flip": a near tie that fp32 rounding decides the other way)
+# stays within MTT_FP64_CAP; the raw MTT check holds MTT_DRAWS draws
+# (PERF.md section 7: the strays are exactly the runs with a flip; near
+# ties counted by margin do not find them, flips happen at up to 21 ulps)
+FP64_NO_TIE = 1e-5
+MTT_DRAWS = 9
 # the card against the CPU: ConvNet3D at 3 classes, 64x64x8
 BASELINES_SMALL = dict(num_classes=3, clips_per_class=6, test_per_class=1,
                        frames=8, im_size=(64, 64), name="baselines-card-vs-cpu")
+
+
+@contextlib.contextmanager
+def routing_log(log):
+    """Append every routing decision of the ConvNet3Ds built and run inside
+    the block to ``log``, in call order: each phase max's winners (and each
+    window's margin over its runner-up, in fp32 ulps of the winner), each
+    later max-pool's argmax and each activation's sign mask, all on the
+    CPU. Their gradients follow these decisions, so two runs that decide
+    alike differ only by rounding."""
+    orig = (pt.phase_argmax, convnet3d.max_pool, convnet3d.activation)
+
+    def phase(y, rows_per_batch):
+        m, idx = orig[0](y, rows_per_batch)
+        top = y.detach().float().view(y.shape[0], 4, -1).topk(2, dim=1).values
+        win = top[:, 0].abs()
+        ulp = torch.nextafter(win, torch.full_like(win, float("inf"))) - win
+        log.append({"kind": "phase_max", "idx": idx.cpu(),
+                    "margin_ulps": ((top[:, 0] - top[:, 1]) / ulp).cpu()})
+        return m, idx
+
+    def pool(x, window, strides=None):
+        _, idx = torch.nn.functional.max_pool3d(
+            x.detach(), tuple(window), stride=tuple(strides or window),
+            return_indices=True)
+        log.append({"kind": "max_pool", "idx": idx.cpu()})
+        return orig[1](x, window, strides)
+
+    def activation(name):
+        act = orig[2](name)
+
+        def record(x):
+            log.append({"kind": "activation", "idx": (x.detach() > 0).cpu()})
+            return act(x)
+        return record
+
+    pt.phase_argmax, convnet3d.max_pool, convnet3d.activation = (
+        phase, pool, activation)
+    try:
+        yield log
+    finally:
+        pt.phase_argmax, convnet3d.max_pool, convnet3d.activation = orig
+
+
+def near_ties(log, ulps):
+    """Phase-max windows of ``log`` whose winner is within ``ulps`` fp32
+    ulps of its runner-up."""
+    return int(sum(int((c["margin_ulps"] <= ulps).sum()) for c in log
+                   if c["kind"] == "phase_max"))
+
+
+def flips(log, ref, kinds=("phase_max", "max_pool")):
+    """Routing decisions of ``log`` of the ``kinds`` (by default the maxes,
+    which route a gradient to one candidate) that differ from ``ref``'s,
+    call by call."""
+    assert [c["kind"] for c in log] == [c["kind"] for c in ref]
+    return int(sum(int((a["idx"] != b["idx"]).sum()) for a, b in zip(log, ref)
+                   if a["kind"] in kinds))
+
+
+def routing_report(logs, ref_key, thresholds=(1, 4, 16, 64, 256)):
+    """Per run of ``logs``: the phase max's near ties at each threshold and
+    smallest margin in ulps, and the decisions of each kind that differ
+    from run ``ref_key``'s."""
+    return {str(k): {"phase_max_near_ties": {u: near_ties(v, u)
+                                             for u in thresholds},
+                     "phase_max_min_margin_ulps": min(
+                         (float(c["margin_ulps"].min()) for c in v
+                          if c["kind"] == "phase_max"), default=None),
+                     "flips_vs_" + str(ref_key): {
+                         kind: flips(v, logs[ref_key], (kind,))
+                         for kind in ("phase_max", "max_pool", "activation")}}
+            for k, v in logs.items()}
 
 
 def dm_step_launches(real_chunks):
@@ -1501,6 +1612,53 @@ def baselines_s2d_dm(data_path, tmp):
     return row
 
 
+# ROADMAP C.12: S2D-DM at the rate that learns in the JAX package's records
+# (BASELINE.md:107-113, test_s2d_dm_step_runs_and_learns), beside the
+# preset's 1e-2; the loss of one fixed probe net and real batch must fall
+S2D_DM_LEARN = dict(lr=1e-4, steps=10, probe_stream=30_000_000)
+
+
+def baselines_s2d_dm_learns(data_path):
+    """S2D-DM through ``distill_s2d.run`` (``s2d_DM_ms``, fp32) at
+    lr_dynamic = lr_hal = 1e-4 for 10 steps, without evaluation: every loss
+    finite, and the probe loss (a fixed net and real batch, before any
+    update) of the final state below the initial state's."""
+    c, L = BASELINES, S2D_DM_LEARN
+    cfg = get_preset("s2d_DM_ms")
+    cfg.s2d = True
+    cfg.dataset, cfg.data_path = c["dataset"], data_path
+    cfg.lr_dynamic = cfg.lr_hal = L["lr"]
+    cfg.Iteration = L["steps"] - 1
+    cfg.startIt = cfg.Iteration + 1  # no evaluation
+    cfg.seed, cfg.device = c["seed"], "cuda"
+    data = load_data(cfg)
+    losses = []
+    run_s, holder = _synced_seconds(lambda: run(
+        cfg, data, MetricLogger(quiet=True),
+        step_hook=lambda it, out: losses.append(float(out[2]))))
+    s2d_cfg, fresh = build_s2d(cfg, data.meta, "cuda")
+    probe_tr = dm.make_s2d_dm_trainer(
+        data.train, cfg.model, s2d_cfg, cfg.batch_real, cfg.lr_static,
+        cfg.lr_dynamic, cfg.lr_hal, not cfg.no_train_static, cfg.frames,
+        device="cuda")
+
+    def probe(st):
+        gen = step_generator(cfg.seed, L["probe_stream"], "cuda")
+        return float(probe_tr(gen, st, init_s2d_momentum(st),
+                              np.random.default_rng(1))[2])
+
+    before, after = probe(fresh), probe(holder["state"])
+    row = {"phase": "baselines_s2d_dm_learns", "lr": L["lr"],
+           "steps": len(losses), "losses": losses,
+           "probe_loss_before": before, "probe_loss_after": after,
+           "driver_seconds": run_s}
+    emit(row)
+    assert np.isfinite(losses).all() and np.isfinite([before, after]).all()
+    assert after < before, f"S2D-DM at {L['lr']}: probe loss {before} -> {after}"
+    emit({"phase": "baselines_s2d_dm_learns", "ok": True})
+    return row
+
+
 def baselines_mtt(data_path, tmp):
     """Raw MTT through ``distill_baseline.main`` (the MTT preset) from a
     fabricated two-snapshot buffer: 1 warm-up + 3 timed steps in bf16 with
@@ -1663,28 +1821,25 @@ def check_baselines_card_vs_cpu():
             tol = 1e-5 if k == "loss" else 1e-4
             assert v <= tol, f"{name} card vs CPU: {k} off by {v} > {tol}"
 
-    # raw MTT: the parity phase's 1e-5 (loss) and 1e-3 (gradients) card
-    # against CPU; past 1e-3, a gradient passes if the card is within 3x of
-    # the CPU's own distance from an fp64 CPU step (or 1e-5) and within
-    # MTT_FP64_CAP of fp64: the phase max routes a gradient to whichever of
-    # two near-equal candidates fp32 rounding makes larger, and either
-    # device can be the one that strays
-    out["mtt"] = m = mtt_card_vs_cpu(syn, gen)
-    assert m["card_vs_cpu"]["loss"] <= 1e-5, f"mtt card vs CPU: {m}"
-    for k in ("grad_images", "grad_syn_lr"):
-        card, cpu = m["card_vs_fp64"][k], m["cpu_vs_fp64"][k]
-        assert (m["card_vs_cpu"][k] <= 1e-3 or card
-                <= min(max(3 * cpu, 1e-5), MTT_FP64_CAP)), (
-            f"mtt card vs CPU: {k} off by {m['card_vs_cpu'][k]}, "
-            f"{card} from fp64 against the CPU's {cpu}")
-    emit({"phase": "baselines_card_vs_cpu", "rel_err": out, "ok": True})
+    # raw MTT over MTT_DRAWS draws, each device against an fp64 CPU step:
+    # a max routes a gradient to whichever of two near-equal candidates fp32
+    # rounding makes larger, so a device may stray where its winner differs
+    # from fp64's (ROADMAP C.13, PERF.md section 7)
+    out["mtt"] = [mtt_card_vs_cpu(*mtt_draw(seed)) for seed in range(MTT_DRAWS)]
+    for m in out["mtt"]:
+        del m["routing"]
+    emit({"phase": "baselines_card_vs_cpu", "rel_err": out})
+    for m in out["mtt"]:
+        check_mtt_draw(m)
+    emit({"phase": "baselines_card_vs_cpu", "ok": True})
 
 
 def mtt_card_vs_cpu(syn, gen):
     """One raw MTT step (syn_steps=2) fp32 on the card and on the CPU and
     fp64 on the CPU, from the same inputs, plan and dropout masks: the
     relative distances of loss and outer gradients, card against CPU and
-    each fp32 device against fp64."""
+    each fp32 device against fp64; each fp32 device's max winners that
+    differ from fp64's (``flips_vs_fp64``) and the ``routing_report``."""
     c = BASELINES_SMALL
     nc, f, im = c["num_classes"], c["frames"], c["im_size"][0]
     steps = 2
@@ -1695,17 +1850,19 @@ def mtt_card_vs_cpu(syn, gen):
     plan = torch.as_tensor(make_batch_plan(np.random.default_rng(6), nc, nc,
                                            steps))
     masks = torch.rand(steps, nc, 1, 1, 1, 128, generator=gen) < 0.5
-    runs = {}
+    runs, logs = {}, {}
     for dev, dtype in (("cpu", "float64"), ("cpu", "float32"),
                        ("cuda", "float32")):
         dt = getattr(torch, dtype)
-        step = MTTStep("ConvNet3D", 3, nc, (im, im), f, steps, 100.0, 1e-5,
-                       True, dtype, dev)
-        runs[dev, dtype] = step(
-            None, syn.to(dev, dt), torch.arange(nc, device=dev),
-            torch.tensor(0.01, device=dev), torch.zeros_like(syn, device=dev, dtype=dt),
-            torch.zeros((), device=dev), t0.to(dev, dt), t1.to(dev, dt),
-            plan.to(dev), keep_masks=masks.to(dev))
+        with routing_log(logs.setdefault(f"{dev}_{dtype}", [])):
+            step = MTTStep("ConvNet3D", 3, nc, (im, im), f, steps, 100.0,
+                           1e-5, True, dtype, dev)
+            runs[dev, dtype] = step(
+                None, syn.to(dev, dt), torch.arange(nc, device=dev),
+                torch.tensor(0.01, device=dev),
+                torch.zeros_like(syn, device=dev, dtype=dt),
+                torch.zeros((), device=dev), t0.to(dev, dt), t1.to(dev, dt),
+                plan.to(dev), keep_masks=masks.to(dev))
 
     def dist(a, b):
         return {"loss": abs(float(a[4]) / float(b[4]) - 1),
@@ -1715,7 +1872,39 @@ def mtt_card_vs_cpu(syn, gen):
     cu, cp, f64 = (runs["cuda", "float32"], runs["cpu", "float32"],
                    runs["cpu", "float64"])
     return {"card_vs_cpu": dist(cu, cp), "card_vs_fp64": dist(cu, f64),
-            "cpu_vs_fp64": dist(cp, f64)}
+            "cpu_vs_fp64": dist(cp, f64),
+            "flips_vs_fp64": {"card": flips(logs["cuda_float32"],
+                                            logs["cpu_float64"]),
+                              "cpu": flips(logs["cpu_float32"],
+                                           logs["cpu_float64"])},
+            "routing": routing_report(logs, "cpu_float64")}
+
+
+def mtt_draw(seed):
+    """The images and the mask generator of draw ``seed``: the draws of
+    ``check_baselines_card_vs_cpu`` (the images, the S2D-DM check's slot
+    bits, then the masks), so draw 0 is the DM checks' own."""
+    c = BASELINES_SMALL
+    nc, f, im = c["num_classes"], c["frames"], c["im_size"][0]
+    gen = torch.Generator().manual_seed(seed)
+    syn = torch.randn(nc, f, im, im, 3, generator=gen)
+    torch.randint(0, 2, (2, nc), generator=gen)
+    return syn, gen
+
+
+def check_mtt_draw(m):
+    """ROADMAP C.13's rule for one raw MTT draw: the loss within 1e-5 card
+    against CPU; each fp32 device's outer gradients within FP64_NO_TIE of
+    fp64, or within MTT_FP64_CAP if a max of that device's forward picked
+    another winner than fp64's did."""
+    assert m["card_vs_cpu"]["loss"] <= 1e-5, f"mtt card vs CPU: {m}"
+    for dev in ("card", "cpu"):
+        cap = MTT_FP64_CAP if m["flips_vs_fp64"][dev] else FP64_NO_TIE
+        for k in ("grad_images", "grad_syn_lr"):
+            d = m[f"{dev}_vs_fp64"][k]
+            assert d <= cap, (
+                f"mtt {dev}: {k} {d} from fp64 over {cap} "
+                f"(flips {m['flips_vs_fp64']})")
 
 
 def phase_baselines(tmp):
@@ -1732,11 +1921,199 @@ def phase_baselines(tmp):
           "train_clips": len(store), "gb": store.clips.nbytes / 1e9})
     baselines_dm(data_path, tmp, store)
     baselines_s2d_dm(data_path, tmp)
+    baselines_s2d_dm_learns(data_path)
     baselines_mtt(data_path, tmp)
     baselines_coresets(data_path, store)
     check_baselines_card_vs_cpu()
     emit({"phase": "baselines", "seconds": time.perf_counter() - t0,
           "ok": True})
+    return data_path
+
+
+# FRePo at full width on the baselines' store, with the driver's defaults
+# (ConvNet3D, ppc=dpc=1, n_hal=1, 10 pool nets of 100 online updates,
+# batch_real 512, lr_d 1e2): 3 iterations, one evaluation at the last with
+# one net of 10 epochs (the driver: 3 nets of 500)
+FREPO = dict(iterations=3, num_eval=1, epoch_eval_train=10, seed=0)
+# with the maxes' winners of fp64, an fp32 FRePo step stays this close to it:
+# the KRR solve amplifies fp32 rounding (tests/test_torch_frepo.py: the two
+# packages' fp32 gradients are 1.3-4.6e-5 apart)
+FREPO_FP64_NO_TIE = 1e-4
+
+
+def frepo_step_launches(real_chunks):
+    """First-stage launches of one FRePo outer step: each real chunk's
+    forward packs and takes the phase max; the prototypes' forward does too,
+    and its backward into them scatters and unpacks; the pool step's forward
+    does too, and its backward into the net scatters only."""
+    return {"phase_argmax": real_chunks + 2, "phase_select": 0,
+            "phase_scatter": 2, "s2d2_pack": real_chunks + 2,
+            "s2d2_unpack": 1}
+
+
+def phase_frepo(data_path, tmp):
+    """FRePo through ``drivers.distill_frepo.main`` at full width; each step
+    with the launch counts set to 0 just before it and checked just after;
+    then the card against the CPU at a small size."""
+    c = FREPO
+    n = len(load_packed(os.path.join(
+        data_path, f"{BASELINES['dataset']}_packed")).train)
+    chunks = -(-min(frepo.FRePoConfig(num_classes=1).batch_real, n)
+               // dm.REAL_CHUNK)
+    want = frepo_step_launches(chunks)
+    T, P = frepo.FRePoTrainer, frepo.ModelPool
+    saved = (T.step, T.real_feats, T.proto_step, P.train_step,
+             distill_frepo.krr_evaluate, distill_frepo.evaluate_many)
+    steps, real, proto, pool_s, krr_s, nn_s, losses = ([] for _ in range(7))
+    init, evals = {}, {}
+
+    def step(self, *args, **kwargs):
+        if not init:
+            init.update(dynamic=self.state["dynamic"].clone(),
+                        hal=self.state["hals"][0]["weight"].clone(),
+                        static=self.static.clone(),
+                        counts=[el["count"] for el in self.pool.elements])
+        reset_first_stage()
+        hc.reset_launches()
+        hf.reset_launches()
+        out = _timed(saved[0], steps)(self, *args, **kwargs)
+        losses.append(out["loss"])
+        if not np.isfinite(out["loss"]):
+            raise AssertionError(f"FRePo: non-finite loss {out}")
+        check_first_stage_counts("FRePo step", want)
+        _check_hal_launches("FRePo step", {k: 1 for k in hc.LAUNCHES})
+        assert hf.LAUNCHES["hal_fused"] == 1, dict(hf.LAUNCHES)
+        return out
+
+    def krr(*args, **kwargs):
+        # compose_eval launched hal_fused once since the last step's check
+        evals["hal_fused_compose_eval"] = hf.LAUNCHES["hal_fused"] - 1
+        reset_first_stage()
+        hc.reset_launches()
+        hf.reset_launches()
+        return _timed(saved[4], krr_s)(*args, **kwargs)
+
+    def nn(*args, **kwargs):
+        out = _timed(saved[5], nn_s)(*args, **kwargs)
+        evals.update(first_stage=first_stage_launches(),
+                     hal_conv=dict(hc.LAUNCHES), hal_fused=hf.LAUNCHES["hal_fused"])
+        return out
+
+    T.step, T.real_feats, T.proto_step = (step, _timed(saved[1], real),
+                                          _timed(saved[2], proto))
+    P.train_step = _timed(saved[3], pool_s)
+    distill_frepo.krr_evaluate, distill_frepo.evaluate_many = krr, nn
+    logger = RecordingLogger()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run_s, res = _synced_seconds(lambda: distill_frepo.main(
+            ["--dataset", BASELINES["dataset"], "--data_path", data_path,
+             "--save_path", os.path.join(tmp, "frepo"),
+             "--Iteration", str(c["iterations"]),
+             "--eval_it", str(c["iterations"]), "--num_eval", str(c["num_eval"]),
+             "--epoch_eval_train", str(c["epoch_eval_train"]),
+             "--seed", str(c["seed"]), "--device", "cuda"], logger=logger))
+    finally:
+        T.step, T.real_feats, T.proto_step = saved[:3]
+        P.train_step = saved[3]
+        distill_frepo.krr_evaluate, distill_frepo.evaluate_many = saved[4:]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tr = res["trainer"]
+    st = tr.state
+    moved = {"dynamic": float((st["dynamic"] - init["dynamic"]).abs().max()),
+             "hal": float((st["hals"][0]["weight"] - init["hal"]).abs().max())}
+    scalars = {k: v for _, rec in logger.records for k, v in rec.items()}
+    accs = {"krr": scalars["KRR_Accuracy"], "nn": scalars["Accuracy/ConvNet3D"]}
+    timed = slice(1, None)
+    row = {"phase": "frepo", "driver_seconds": run_s, "steps": len(steps),
+           "losses": losses, "accuracy": accs, "max_abs_change": moved,
+           "pool_counts": [el["count"] for el in tr.pool.elements],
+           "ms_per_step": float(np.mean(steps[timed])) * 1e3,
+           "ms_real_embed": float(np.mean(real[timed])) * 1e3,
+           "ms_synthetic_side": float(np.mean(proto[timed])
+                                      - np.mean(real[timed])) * 1e3,
+           "ms_pool_step": float(np.mean(pool_s[timed])) * 1e3,
+           "krr_eval_seconds": krr_s[0], "nn_eval_seconds": nn_s[0],
+           "real_chunks": chunks,
+           "launches_per_step": {**want, **{k: 1 for k in hc.LAUNCHES},
+                                 "hal_fused": 1},
+           "evaluation_launches": evals,
+           "max_memory_allocated_gb": peak}
+    emit(row)
+    assert all(v > 0 for v in moved.values()), moved
+    assert torch.equal(tr.static, init["static"])  # frozen
+    assert all(_finite(t) for t in (st["dynamic"], st["hals"][0]["weight"]))
+    # one pool net trains a step an iteration; none reaches 100 and resets
+    assert sum(row["pool_counts"]) - sum(init["counts"]) == c["iterations"]
+    assert all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in accs.values()), accs
+    # the evaluation: compose_eval once, then KRR (the prototypes and one
+    # batch of test clips forward) and the nets trained on the composed
+    # tensor (11 first-order steps, one test batch): no hal_* kernel
+    assert evals["hal_fused_compose_eval"] == 1, evals
+    assert evals["hal_fused"] == 0 and not any(evals["hal_conv"].values()), evals
+    assert evals["first_stage"] == first_order(
+        (c["epoch_eval_train"] + 1) * c["num_eval"], 2 + c["num_eval"]), evals
+    emit({"phase": "frepo", "ok": True})
+    check_frepo_card_vs_cpu()
+    return row
+
+
+def check_frepo_card_vs_cpu():
+    """One FRePo proto step and one pool step at 3 classes, 64x64x8, from
+    the same state, pool net, real batch, prototypes and dropout mask:
+    fp32 on the card and on the CPU against fp64 on the CPU. Each fp32
+    device's loss and gradients (the dynamic memory's, the hallucinator's,
+    the pool net's) within FREPO_FP64_NO_TIE of fp64 (relative norm), or
+    within MTT_FP64_CAP if a max of that device's forwards picked another
+    winner than fp64's did (ROADMAP C.13)."""
+    c = BASELINES_SMALL
+    store = make_synthetic_video_data(**c).train
+    nc, f, im = c["num_classes"], c["frames"], c["im_size"][0]
+    cfg = frepo.FRePoConfig(num_classes=nc, frames=f, im_size=(im, im),
+                            num_nn_state=2, max_online_updates=5, batch_real=8)
+    static = np.random.default_rng(0).normal(size=(nc, im, im, 3)).astype(
+        np.float32)
+    base = frepo.FRePoTrainer(store, "ConvNet3D", cfg,
+                              torch.Generator().manual_seed(1), static, "cpu")
+    sd = base.state_dict()
+    real_idx = torch.as_tensor(np.random.default_rng(2).choice(
+        len(store), size=cfg.batch_real, replace=False))
+    x = base.compose_eval()  # the pool step's input on every device
+    y = base.state["y_syn"]
+    mask = torch.rand(nc, 1, 1, 1, 128,
+                      generator=torch.Generator().manual_seed(3)) < 0.5
+    runs, logs = {}, {}
+    for dev, dt in (("cpu", torch.float64), ("cpu", torch.float32),
+                    ("cuda", torch.float32)):
+        with routing_log(logs.setdefault(f"{dev}_{str(dt)[6:]}", [])):
+            tr = frepo.FRePoTrainer(store, "ConvNet3D", cfg, None, static,
+                                    dev, dt)
+            tr.load_state_dict(sd)
+            loss, _, _, g = tr.proto_step(tr.pool.params(0), real_idx.to(dev))
+            tr.pool.train_step(0, x.to(dev, dt), y.to(dev, dt), None, None,
+                               mask.to(dev))
+        runs[dev, dt] = {"loss": loss.reshape(1), "grad_dynamic": g["dynamic"],
+                         "grad_hal_weight": g["hals"][0]["weight"],
+                         "grad_hal_bias": g["hals"][0]["bias"],
+                         "grad_pool_net": tr.pool.elements[0]["m"]}
+    ref = runs["cpu", torch.float64]
+    dist = {name: {k: _rel(v, ref[k]) for k, v in runs[dev, torch.float32].items()}
+            for name, dev in (("card", "cuda"), ("cpu", "cpu"))}
+    flipped = {name: flips(logs[key], logs["cpu_float64"])
+               for name, key in (("card", "cuda_float32"),
+                                 ("cpu", "cpu_float32"))}
+    caps = {name: MTT_FP64_CAP if n else FREPO_FP64_NO_TIE
+            for name, n in flipped.items()}
+    emit({"phase": "frepo_card_vs_cpu", "rel_norm_vs_fp64": dist,
+          "card_vs_cpu": {k: _rel(v, runs["cpu", torch.float32][k])
+                          for k, v in runs["cuda", torch.float32].items()},
+          "flips_vs_fp64": flipped, "caps": caps,
+          "routing": routing_report(logs, "cpu_float64")})
+    for name, d in dist.items():
+        for k, v in d.items():
+            assert v <= caps[name], (
+                f"FRePo {name}: {k} {v} from fp64 over {caps[name]}")
+    emit({"phase": "frepo_card_vs_cpu", "ok": True})
 
 
 def main():
@@ -1752,7 +2129,7 @@ def main():
         launches["hal_fused"] = phase_pipeline(tmp)
         phase_expert()
         phase_static(tmp)
-        phase_baselines(tmp)
+        phase_frepo(phase_baselines(tmp), tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, row in rows.items():

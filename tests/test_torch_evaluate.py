@@ -21,8 +21,6 @@ steps); the train accuracy, top-1/3/5 and per-class accuracy exactly.
 Mode 'none' is compared the same way over 2 epochs.
 """
 
-import dataclasses
-
 import flax.linen
 import jax
 import jax.numpy as jnp
@@ -201,15 +199,6 @@ def test_test_batches_match_jax():
         np.testing.assert_array_equal(gc.numpy(), np.asarray(rc))
         np.testing.assert_array_equal(gl.numpy(), np.asarray(rl))
         np.testing.assert_array_equal(gw.numpy(), np.asarray(rw))
-
-
-@pytest.mark.parametrize("field,value", [("optimizer", "adamw"),
-                                         ("loss", "mse"), ("ema_decay", 0.995)])
-def test_frepo_protocol_raises(field, value):
-    cfg = dataclasses.replace(teval.EvalConfig(), **{field: value})
-    with pytest.raises(NotImplementedError, match="A.15"):
-        teval.train_synset(None, torch.zeros(1, F, IM, IM, 3),
-                           torch.zeros(1), None, cfg)
 
 
 def test_vmap_eval_raises():

@@ -53,10 +53,12 @@ def test_package_imports_with_jax_blocked():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     assert len(names) >= 46
-    # static learning, packing and the baselines, which need no JAX either
+    # static learning, packing, the baselines and FRePo, which need no JAX
+    # either
     assert {f"video_distillation_torch.{m}" for m in (
         "models.convnet2d", "ops.losses", "distill.dc", "distill.dm",
         "drivers.distill_static", "data.packer", "drivers.pack",
         "ingest.extract_k400", "ingest.extract_ssv2", "ingest.resize",
         "distill.coreset", "drivers.distill_baseline",
-        "drivers.distill_coreset")} <= names
+        "drivers.distill_coreset", "distill.frepo",
+        "drivers.distill_frepo")} <= names

@@ -85,9 +85,9 @@ def standardize(r_u8, norm_mean, norm_std, cdt):
 
 def embed(model, params, x):
     """The frozen net's features of ``x`` (``output='feat'``, train mode:
-    the features come before the head's dropout), in fp32."""
-    return functional_call(model, params, (x,),
-                           dict(train=True, output="feat")).float()
+    the features come before the head's dropout), in fp32 (fp64 for fp64)."""
+    feat = functional_call(model, params, (x,), dict(train=True, output="feat"))
+    return feat.to(torch.promote_types(feat.dtype, torch.float32))
 
 
 @torch.no_grad()

@@ -21,10 +21,20 @@ protocol only:
 * the test pass runs the test split ``test_repeats`` times with fresh random
   temporal crops, in batches of 64, counting top-1/3/5 and per-class hits.
 
+FRePo's protocol (FRePo/lib_torch/utils.py:561-603, JAX evaluate.py:
+112-133, :240-342) is three fields, each of which the JAX package also takes
+alone: ``optimizer='adamw'`` (torch AdamW, weight decay 5e-4, a linear
+warm-up over ``max(1, int(0.1 epochs))`` epochs times a cosine to 1%, per
+epoch), ``loss='mse'`` (soft (N, C) labels; accuracy is the argmax against
+the argmax), ``ema_decay`` > 0 (the trained θ is the EMA of the steps,
+debiased by ``1 - decay^steps``). ``standardize=False`` skips the training
+batches' standardisation; the test pass standardises every batch whatever
+it says, as the JAX package's does (ROADMAP C.16).
+
 Everything runs in fp32. The net's parameters are one flat vector θ in the
-JAX package's order (``distill/params.py``), as in MTT. FRePo's protocol
-('adamw', 'mse', EMA) is ROADMAP A.15; training the ``num_eval`` nets as
-one batched model (``vmap_eval``) is A.7b. Both raise.
+JAX package's order (``distill/params.py``), as in MTT. Training the
+``num_eval`` nets as one batched model (``vmap_eval``) is ROADMAP A.7b and
+raises.
 
 The randomness can be injected (``draws``, ``keep_masks``), so a test
 hands both packages the same initial parameters, permutations, slot draws
@@ -42,6 +52,7 @@ from torch.func import functional_call
 
 from ..data.store import VideoData, normalize_u8
 from ..ops.metrics import per_class_correct, topk_correct
+from .frepo import bias_correction
 from .mtt import flat_param_template, masked_ce
 from .params import layout_for
 from .s2d import S2DConfig, eval_slot_draw, hallucinate_frozen
@@ -59,9 +70,9 @@ class EvalConfig:
     test_repeats: int = 3
     # synthetic-set parameterization: 'none' (raw tensor) or 'multi-static'
     mode: str = "none"
-    # FRePo's protocol (ROADMAP A.15): only the defaults are ported
-    optimizer: str = "sgd_momentum"
-    loss: str = "ce"
+    # FRePo's protocol: 'adamw', 'mse', standardize=False, ema_decay 0.995
+    optimizer: str = "sgd_momentum"   # 'sgd_momentum' | 'adamw'
+    loss: str = "ce"                  # 'ce' | 'mse'
     standardize: bool = True
     ema_decay: float = 0.0
 
@@ -131,12 +142,35 @@ def _torch_sgd(theta, grad, mom, lr, momentum, weight_decay, reset: bool):
     return theta - lr * mom, mom
 
 
+def _torch_adamw(theta, grad, m, v, lr, t: int, weight_decay,
+                 b1=0.9, b2=0.999, eps=1e-8):
+    """torch AdamW (decoupled weight decay, bias-corrected) at step t >= 1,
+    in the JAX package's operation order."""
+    m = b1 * m + (1 - b1) * grad
+    v = b2 * v + (1 - b2) * grad * grad
+    m_hat = m / bias_correction(b1, t, theta.device)
+    v_hat = v / bias_correction(b2, t, theta.device)
+    theta = theta * (1 - lr * weight_decay)
+    return theta - lr * m_hat / (torch.sqrt(v_hat) + eps), m, v
+
+
+def _adamw_lrs(lr_net: float, epochs: int, nb: int, device):
+    """Per-step learning rates of FRePo's schedule (evaluate.py:240-250),
+    fp32 as the JAX package computes them: LinearLR 0.01 -> 1 over
+    ``max(1, int(0.1 epochs))`` epochs times a cosine to 1% over ``epochs``,
+    stepped per epoch."""
+    epoch = (torch.arange(epochs * nb, device=device) // nb).float()
+    warm = torch.clamp(0.01 + (1.0 - 0.01) * epoch / max(1, int(epochs * 0.1)),
+                       max=1.0)
+    cos = 0.01 + 0.5 * (1 - 0.01) * (1 + torch.cos(np.pi * epoch / epochs))
+    return torch.tensor(lr_net, dtype=torch.float32, device=device) * warm * cos
+
+
 def _check_protocol(cfg: EvalConfig):
-    if (cfg.optimizer, cfg.loss, cfg.ema_decay) != ("sgd_momentum", "ce", 0.0):
-        raise NotImplementedError(
-            f"evaluation with optimizer={cfg.optimizer!r}, loss={cfg.loss!r}, "
-            f"ema_decay={cfg.ema_decay}: FRePo's protocol is not ported yet "
-            "(ROADMAP A.15); the root protocol is sgd_momentum / ce / 0")
+    if cfg.optimizer not in ("sgd_momentum", "adamw"):
+        raise ValueError(f"unknown evaluation optimizer: {cfg.optimizer}")
+    if cfg.loss not in ("ce", "mse"):
+        raise ValueError(f"unknown evaluation loss: {cfg.loss}")
     if cfg.mode not in ("none", "multi-static"):
         raise ValueError(f"unknown evaluation mode: {cfg.mode}")
 
@@ -171,6 +205,8 @@ def train_synset(generator, syn_images, syn_labels, meta, cfg: EvalConfig,
     model, theta, layout = fresh_net(cfg.model, meta, meta.frames, generator,
                                      device, None if draws is None else draws.theta)
     mom = torch.zeros_like(theta)
+    adam_v = torch.zeros_like(theta)
+    ema = torch.zeros_like(theta)
 
     epochs = cfg.epoch_eval_train + 1
     bt = min(cfg.batch_train, n_syn)
@@ -190,9 +226,13 @@ def train_synset(generator, syn_images, syn_labels, meta, cfg: EvalConfig,
     if cfg.mode == "none":
         item_shape = tuple(syn_images.shape[1:])
         syn2d = syn_images.reshape(n_syn, -1)
-        labels = torch.as_tensor(syn_labels, device=device).long()
+        labels = torch.as_tensor(syn_labels, device=device)
+        labels = labels.float() if cfg.loss == "mse" else labels.long()
+    steps = epochs * nb
+    if cfg.optimizer == "adamw":
+        adam_lrs = _adamw_lrs(cfg.lr_net, epochs, nb, device)
     corrects, counts = [], []
-    for step in range(epochs * nb):
+    for step in range(steps):
         epoch = step // nb
         lr = cfg.lr_net * 0.1 if epoch > drop_epoch else cfg.lr_net
         reset = epoch == drop_epoch + 1 and step % nb == 0
@@ -225,14 +265,31 @@ def train_synset(generator, syn_images, syn_labels, meta, cfg: EvalConfig,
             model, layout.unflatten(theta), (x,),
             dict(train=True, generator=generator,
                  keep_mask=None if keep_masks is None else keep_masks[step]))
-        loss = masked_ce(logits, y, w)
+        if cfg.loss == "mse":
+            # soft labels y (B, C); torch MSELoss's mean over the classes
+            per = torch.mean((logits - y) ** 2, dim=-1)
+            loss = (per * w).sum() / w.sum().clamp_min(1.0)
+            hit = logits.argmax(-1) == y.argmax(-1)
+        else:
+            loss = masked_ce(logits, y, w)
+            hit = logits.argmax(-1) == y
         (grad,) = torch.autograd.grad(loss, theta)
         with torch.no_grad():
-            theta, mom = _torch_sgd(theta.detach(), grad, mom, lr, 0.9, 5e-4,
-                                    reset)
+            if cfg.optimizer == "adamw":
+                theta, mom, adam_v = _torch_adamw(theta.detach(), grad, mom,
+                                                  adam_v, adam_lrs[step],
+                                                  step + 1, 5e-4)
+            else:
+                theta, mom = _torch_sgd(theta.detach(), grad, mom, lr, 0.9,
+                                        5e-4, reset)
+            if cfg.ema_decay > 0:
+                ema = cfg.ema_decay * ema + (1 - cfg.ema_decay) * theta
             if epoch == epochs - 1:
-                corrects.append(((logits.argmax(-1) == y).float() * w).sum())
+                corrects.append((hit.float() * w).sum())
                 counts.append(w.sum())
+    if cfg.ema_decay > 0:
+        # the debiased average (EMA(debias=True), evaluate.py:336-339)
+        theta = ema / (1.0 - cfg.ema_decay ** steps)
     acc_train = float(torch.stack(corrects).sum() / torch.stack(counts).sum())
     return theta, model, acc_train
 

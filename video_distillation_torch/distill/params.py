@@ -22,6 +22,9 @@ written here as code, with no flax:
   ``video_distillation_tpu/drivers/convert.py:42-49``).
 
 The Hallucinator's flax tree is ``{'kernel': (3,3,3,cin,3), 'bias': (3,)}``.
+``frepo_carry_from_jax`` converts a JAX FRePo trainer's state (the S2D
+tensors, the synthetic optimizer's moments and each pool net with its Adam
+moments) so that both packages can start from one point.
 
 The 2-D ConvNet's (static learning; at 50 classes and 112x112 with the
 default instancenorm, P = 1,553,970)::
@@ -179,6 +182,57 @@ def to_jax_flat(model_or_params, model=None) -> np.ndarray:
         params = model_or_params
     params = {k: v.detach().float().cpu() for k, v in params.items()}
     return layout_for(model).flatten(params).numpy()
+
+
+def _hal_from_jax(tree, device=None) -> Dict[str, torch.Tensor]:
+    cin = np.asarray(tree["kernel"]).shape[3]
+    return JaxLayout.for_hallucinator(cin).from_jax(tree, device=device)
+
+
+def _frepo_tree_from_jax(tree: Mapping, device=None) -> dict:
+    """A FRePo state-shaped tree (``dynamic``, ``hals``, ``y_syn`` or
+    ``x_proto``) of numpy leaves in the JAX layouts -> torch tensors."""
+    out = {}
+    for k, v in tree.items():
+        if k == "hals":
+            out[k] = [_hal_from_jax(h, device) for h in v]
+        else:
+            out[k] = torch.as_tensor(np.array(v, np.float32), device=device)
+    return out
+
+
+def frepo_carry_from_jax(model, state: Mapping, pool=(), opt=None,
+                         device=None) -> dict:
+    """The port's FRePo trainer state (``FRePoTrainer.load_state_dict``)
+    from the JAX trainer's, as numpy:
+
+    * ``state``: ``{'dynamic', 'hals': [{'kernel', 'bias'}], 'y_syn'}`` (or
+      ``{'x_proto', 'y_syn'}``);
+    * ``pool``: each JAX pool element as ``{'params', 'mu', 'nu'}`` (flax
+      trees of the net ``model`` is) and ``'count'`` (optax's) and
+      ``'step'`` (the element's);
+    * ``opt``: ``{'count', 'mu', 'nu'}`` with ``state``'s structure, or
+      None for a fresh optimizer (zero moments, count 0)."""
+    st = _frepo_tree_from_jax(state, device)
+    if opt is None:
+        def zeros():
+            return {k: ([{n: torch.zeros_like(t) for n, t in h.items()}
+                         for h in v] if k == "hals" else torch.zeros_like(v))
+                    for k, v in st.items()}
+        opt_t = {"count": 0, "m": zeros(), "v": zeros()}
+    else:
+        opt_t = {"count": int(opt["count"]),
+                 "m": _frepo_tree_from_jax(opt["mu"], device),
+                 "v": _frepo_tree_from_jax(opt["nu"], device)}
+    layout = layout_for(model)
+
+    def flat(tree):
+        return layout.flatten(layout.from_jax(tree, device=device))
+
+    elements = [{"params": flat(el["params"]), "m": flat(el["mu"]),
+                 "v": flat(el["nu"]), "count": int(el["count"]),
+                 "step": int(el["step"])} for el in pool]
+    return {"state": st, "opt": opt_t, "pool": elements}
 
 
 def layout_for(model) -> JaxLayout:
