@@ -26,6 +26,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              version's, cuDNN's TF32 and the kernel's on bf16 inputs
              distances from fp64 beside it) and bit-equal across two
              calls; each timed beside its byte bound and cuDNN's conv3d.
+2b. check_vmap — each kernel Function's ``torch.func.vmap`` rule: one
+             vmapped call over 3 nets at the evaluation shape (fp32, B=50,
+             F=16, 112x112) against the nets' unbatched calls, each kernel
+             launched once a call: ``hal_fwd`` (static mapped and
+             broadcast), ``hal_dgrad``, ``hal_fused`` (the nets folded by
+             hand, as the batched evaluation composes), pack, unpack and
+             the phase trio bit-equal; the weight gradient within 1e-5 of the
+             largest |value| of fp64, summed over all nets' samples (grad
+             outside vmap: one dgrad and one wgrad launch) and per net (vmap
+             of grad); vmapped and loop times.
 3. parity  — one fp32 S2D-MTT step at a small shape (3 classes, 64x64x8,
              syn_steps=2) on the card and on the CPU from the same inputs,
              draws and dropout masks: grand loss within 1e-5 relative,
@@ -77,15 +87,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              (``drivers.buffer``) trains 1 expert for 3 epochs in bf16;
              ``drivers.distill_s2d.run`` (``s2d_MTT_ms``, bf16) takes 3
              outer steps from that buffer and evaluates the multi-static
-             set at iterations 0 and 2 with num_eval=2 fresh fp32 nets,
-             the evaluation depth cut to epoch_eval_train=10 (the preset
-             has 500). Every adjacent snapshot pair must differ, every
-             accuracy be finite and in [0, 1], the artifacts and PNG grids
-             exist, ``hal_fused`` be launched once per evaluation
-             training step, and the first-stage kernels as often as the
-             expert, distillation, evaluation-training and test-pass steps
-             need them. Then one evaluation training run and one test
-             pass are timed on the distilled state.
+             set at iterations 0 and 2 with num_eval=2 fresh fp32 nets
+             trained batched (``vmap_eval``, the default), the evaluation
+             depth cut to epoch_eval_train=10 (the preset has 500). Every
+             adjacent snapshot pair must differ, every accuracy be finite
+             and in [0, 1], the artifacts and PNG grids exist, ``hal_fused``
+             be launched once per batched evaluation training step (for
+             all nets), and the first-stage kernels as often as the
+             expert, distillation, batched evaluation-training and test
+             batches need them. Then, on the distilled state, one
+             evaluation point of 3 nets (10 + 1 epochs at B=50 and the test
+             pass) batched and one net after the other, in the order
+             batched, sequential, sequential, batched, each with its
+             training and test seconds and peak memory; and one batched
+             training step against each net's sequential step from the
+             same draws: the change of θ within 1e-5 relative norm, or
+             1e-2 where a phase max of the batched forward picked another
+             winner (C.13).
+7b. convert — the pipeline's expert buffer, ``hal_0.npz``,
+             ``dynamic_0.npy`` and its static memory (as NHWC ``.npy``)
+             through ``drivers.convert``'s CLI to the reference's ``.pt``
+             and back, each byte-equal to its source (an npz member by
+             member); then one S2D-MTT step from the static that went
+             ``.npy`` -> ``.pt`` -> ``.npy``, which must stay as loaded.
 8. expert  — one epoch of expert training (``distill.buffer.train_expert``)
              at full width and the preset's batch of 256 (two steps), in
              bf16 and in fp32 from the same parameters, batches, flips and
@@ -163,9 +187,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              every gradient within 1e-4 of fp64, or within 1e-2 if a max
              picked another winner than fp64's.
 
+12. zoo    — the VideoConvNets on the baselines' store (50 classes,
+             112x112x16): VideoConvNetMean and VideoConvNetLSTM evaluated
+             (3 nets batched, 3 epochs of one step on a one-clip-a-class raw
+             set, 64x64 after the crop) with the batched test pass, and one
+             raw DM step with VideoConvNetGRU through
+             ``distill_baseline.main`` (real clips in chunks that keep its
+             widest activation under 2^30 elements): finite parameters and
+             loss, accuracies in [0, 1], none of the port's kernels
+             launched; ms a step and peak memory.
+
 Then the ``kernels`` line (launch counts: the three ``hal_conv`` and the
 five first-stage kernels from the bf16 slice run, ``hal_fused`` from the
-pipeline run; the other paths' counts are in their phases' lines), the
+pipeline run's batched evaluations; the other paths' counts are in their
+phases' lines), the
 card's name and power limit, and the ``ok`` line.
 """
 
@@ -181,6 +216,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -197,8 +233,10 @@ from video_distillation_torch.distill import (  # noqa: E402
     coreset, dc, dm, frepo)
 from video_distillation_torch.distill.buffer import (  # noqa: E402
     ExpertDraws, train_expert)
+from video_distillation_torch.distill import evaluate  # noqa: E402
 from video_distillation_torch.distill.evaluate import (  # noqa: E402
-    TEST_BATCH, EvalConfig, run_test_pass, sample_test_batches, train_synset)
+    TEST_BATCH, EvalConfig, EvalDraws, evaluate_many, run_test_pass,
+    sample_test_batches, train_synset, train_synsets)
 from video_distillation_torch.distill.mtt import (  # noqa: E402
     MTTStep, S2DHyper, S2DMTTStep, TrajectoryBuffer, flat_param_template,
     make_batch_plan)
@@ -208,7 +246,7 @@ from video_distillation_torch.distill.dm import \
     init_synthetic_raw  # noqa: E402
 from video_distillation_torch.drivers import buffer as buffer_driver  # noqa: E402
 from video_distillation_torch.drivers import (  # noqa: E402
-    distill_baseline, distill_coreset, distill_frepo, distill_static)
+    convert, distill_baseline, distill_coreset, distill_frepo, distill_static)
 from video_distillation_torch.drivers.common import load_data  # noqa: E402
 from video_distillation_torch.drivers.distill_s2d import (  # noqa: E402
     build_s2d, run)
@@ -248,6 +286,8 @@ EVAL_SHAPE = (50, 16, 112, 112)
 PIPELINE = dict(dataset="synthetic_c50_n2_t2_f16_im112", expert_epochs=3,
                 iterations=2, eval_it=2, num_eval=2, epoch_eval_train=10)
 PAPER_EVAL = dict(epoch_eval_train=500, num_eval=3)  # the s2d_MTT_ms preset
+# batched evaluation's nets: the presets' num_eval
+VMAP_NETS = PAPER_EVAL["num_eval"]
 # 300 train clips: two steps of the preset's batch_train=256 an epoch
 EXPERT = dict(dataset="synthetic_c50_n6_t1_f16_im112", batch=256,
               timed_epochs=2)
@@ -647,6 +687,172 @@ def check_hal_fp32_full_width():
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": cuda_ms(lib, 5)})
     emit({"phase": "check_fp32_full_width", "rows": rows, "ok": True})
+
+
+def all_launches():
+    """Every kernel's launch count that is not 0."""
+    return {k: v for k, v in {**hc.LAUNCHES, **hf.LAUNCHES, **pt.LAUNCHES,
+                              **sm.LAUNCHES}.items() if v}
+
+
+def reset_all_launches():
+    hc.reset_launches()
+    hf.reset_launches()
+    reset_first_stage()
+
+
+def launched(fn):
+    """(fn's output, the launches it made)."""
+    reset_all_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, all_launches()
+
+
+def check_vmap_rule(name, vmapped, loop, want, compare):
+    """One vmapped call against the nets' unbatched calls: the launches it
+    makes must be ``want`` and ``compare(batched, per_net)`` passes."""
+    got, n = launched(vmapped)
+    if n != want:
+        raise AssertionError(f"vmap {name}: launches {n}, expected {want}")
+    err = compare(got, loop())
+    return {"name": name, "launches": n, "max_abs_err": err,
+            "vmapped_ms": cuda_ms(vmapped, 3), "loop_ms": cuda_ms(loop, 3)}
+
+
+def _equal_each(name):
+    def compare(got, refs):
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        for e, ref in enumerate(refs):
+            ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+            for a, r in zip(got, ref):
+                check_equal(f"vmap {name} net {e}", a[e], r)
+        return 0.0
+    return compare
+
+
+def phase_check_vmap():
+    """Each kernel Function's torch.func.vmap rule on the card: one vmapped
+    call over VMAP_NETS nets at the evaluation shape (fp32, B=50,
+    112x112x16) against the nets' unbatched calls, with the launches each
+    makes: bit-equal for the kernels that compute per sample; the weight
+    gradient, a sum over the folded samples, within 1e-5 of the largest
+    |value| of an fp64 reference (over all nets' samples, grad outside vmap;
+    per net, vmap of grad)."""
+    from torch.func import grad, vmap
+    E, (b, f, h, w) = VMAP_NETS, EVAL_SHAPE
+    st, dy = randn((E, b, h, w, 3), torch.float32, 40), \
+        randn((E, b, f, h, w, 1), torch.float32, 41)
+    wt, bs = randn((3, 4, 3, 3, 3), torch.float32, 42) * 0.2, \
+        randn((3,), torch.float32, 43)
+    rows = [check_vmap_rule(
+        "hal_fwd", lambda: vmap(hc.hal_conv, in_dims=(0, 0, None, None))(
+            st, dy, wt, bs),
+        lambda: [hc.hal_conv(st[e], dy[e], wt, bs) for e in range(E)],
+        {"hal_fwd": 1}, _equal_each("hal_fwd"))]
+    rows.append(check_vmap_rule(
+        "hal_fwd_broadcast_static",
+        lambda: vmap(hc.hal_conv, in_dims=(None, 0, None, None))(
+            st[0], dy, wt, bs),
+        lambda: [hc.hal_conv(st[0], dy[e], wt, bs) for e in range(E)],
+        {"hal_fwd": 1}, _equal_each("hal_fwd_broadcast_static")))
+    ybar = randn((E, b, f, h, w, 3), torch.float32, 44)
+    planar = ybar.permute(0, 1, 5, 2, 3, 4).contiguous()  # (E, b, 3, f, h, w)
+    rows.append(check_vmap_rule(
+        "hal_dgrad", lambda: vmap(lambda g: hc.HalDgrad.apply(
+            g, wt, False, True)[1])(planar),
+        lambda: [hc.hal_dgrad(planar[e], wt, False, True)[1]
+                 for e in range(E)],
+        {"hal_dgrad": 1}, _equal_each("hal_dgrad")))
+
+    def shared_grads():
+        """grad outside vmap: the backward of the folded call."""
+        d = dy.detach().requires_grad_(True)
+        wq, bq = wt.detach().requires_grad_(True), bs.detach().requires_grad_(True)
+        y = vmap(hc.hal_conv, in_dims=(0, 0, None, None))(st, d, wq, bq)
+        return torch.autograd.grad(y, (d, wq, bq), ybar)
+
+    (dd, dk, db), n = launched(shared_grads)
+    want = {"hal_fwd": 1, "hal_dgrad": 1, "hal_wgrad": 1}
+    if n != want:
+        raise AssertionError(f"vmap hal_conv backward: launches {n}, "
+                             f"expected {want}")
+    for e in range(E):
+        check_equal(f"vmap hal_conv backward dd net {e}", dd[e],
+                    hc.hal_dgrad(planar[e], wt, False, True)[1])
+    rk, rb = hal_wgrad_fp64(planar.flatten(0, 1), st.flatten(0, 1),
+                            dy.flatten(0, 1))
+    shared_err = max(check_max("vmap hal_wgrad dk (all nets)", dk, rk, 1e-5),
+                     check_max("vmap hal_wgrad db (all nets)", db, rb, 1e-5))
+
+    def per_net_loss(wq, bq, s, d, yb):
+        return (hc.hal_conv(s, d, wq, bq) * yb).sum()
+
+    per_net = lambda: vmap(grad(per_net_loss, argnums=(0, 1)),  # noqa: E731
+                           in_dims=(None, None, 0, 0, 0))(wt, bs, st, dy, ybar)
+    (pk, pb), n = launched(per_net)
+    if n != {"hal_fwd": 1, "hal_wgrad": 1}:
+        raise AssertionError(f"vmap of grad hal_wgrad: launches {n}")
+    per_err = 0.0
+    for e in range(E):
+        rk, rb = hal_wgrad_fp64(planar[e], st[e], dy[e])
+        per_err = max(per_err,
+                      check_max(f"vmap hal_wgrad dk net {e}", pk[e], rk, 1e-5),
+                      check_max(f"vmap hal_wgrad db net {e}", pb[e], rb, 1e-5))
+    rows.append({"name": "hal_wgrad", "launches": {"hal_wgrad": 1},
+                 "max_abs_err_all_nets": shared_err,
+                 "max_abs_err_per_net": per_err,
+                 "vmapped_ms": cuda_ms(shared_grads, 3),
+                 "per_net_vmapped_ms": cuda_ms(per_net, 3)})
+    del ybar, planar, dd, dk, db, pk, pb
+    rows.append(check_vmap_rule(
+        "hal_fused", lambda: hf.hal_fused(st.flatten(0, 1), dy.flatten(0, 1),
+                                          wt, bs).unflatten(0, (E, b)),
+        lambda: [hf.hal_fused(st[e], dy[e], wt, bs) for e in range(E)],
+        {"hal_fused": 1}, _equal_each("hal_fused")))
+    del st, dy
+
+    x = randn((E, b, f, h, w, 3), torch.float32, 45)
+    rows.append(check_vmap_rule(
+        "s2d2_pack", lambda: vmap(sm.Pack.apply)(x),
+        lambda: [sm.Pack.apply(x[e]) for e in range(E)],
+        {"s2d2_pack": 1}, _equal_each("s2d2_pack")))
+    hc_, wc_ = sm.packed_hw(h, w)
+    del x
+    gp = randn((E, b, f, hc_, wc_, 36), torch.float32, 46)
+    rows.append(check_vmap_rule(
+        "s2d2_unpack", lambda: vmap(lambda g: sm.Unpack.apply(g, h, w))(gp),
+        lambda: [sm.Unpack.apply(gp[e], h, w) for e in range(E)],
+        {"s2d2_unpack": 1}, _equal_each("s2d2_unpack")))
+    del gp
+    rows_per, o = f * (h // 4) * (w // 4), 64
+    n_rows = b * rows_per
+    y = randn((E, n_rows, 4 * o), torch.float32, 47)
+    rows.append(check_vmap_rule(
+        "phase_argmax",
+        lambda: vmap(pt.PhaseArgmax.apply, in_dims=(0, None))(y, rows_per),
+        lambda: [pt.PhaseArgmax.apply(y[e], rows_per) for e in range(E)],
+        {"phase_argmax": 1}, _equal_each("phase_argmax")))
+    _, idx = vmap(pt.PhaseArgmax.apply, in_dims=(0, None))(y, rows_per)
+    rows.append(check_vmap_rule(
+        "phase_select",
+        lambda: vmap(pt.PhaseSelect.apply, in_dims=(0, 0, None))(
+            y, idx, rows_per),
+        lambda: [pt.PhaseSelect.apply(y[e], idx[e], rows_per)
+                 for e in range(E)],
+        {"phase_select": 1}, _equal_each("phase_select")))
+    del y
+    c = randn((E, b, o, rows_per), torch.float32, 48)
+    rows.append(check_vmap_rule(
+        "phase_scatter",
+        lambda: vmap(pt.PhaseScatter.apply, in_dims=(0, 0, None))(
+            c, idx, rows_per),
+        lambda: [pt.PhaseScatter.apply(c[e], idx[e], rows_per)
+                 for e in range(E)],
+        {"phase_scatter": 1}, _equal_each("phase_scatter")))
+    del c, idx
+    emit({"phase": "check_vmap", "nets": E, "shape": EVAL_SHAPE,
+          "rows": rows, "ok": True})
 
 
 def phase_parity():
@@ -1090,18 +1296,20 @@ def phase_pipeline(tmp):
     launches = hf.LAUNCHES["hal_fused"]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    # one hal_fused launch per evaluation training step (n_hal=1; all 50
+    # the evaluations run batched (vmap_eval, the default): one hal_fused
+    # launch per batched training step for all nets (n_hal=1; all 50
     # synthetic videos fit one batch of batch_train=256, so one step per
-    # epoch), per net, per evaluation; the PNG grids compose through
-    # hal_conv and add none
+    # epoch), per evaluation; the PNG grids compose through hal_conv and
+    # add none
+    assert cfg.vmap_eval
     n_evals = len(range(cfg.startIt, cfg.Iteration + 1, cfg.eval_it))
-    expect = (cfg.epoch_eval_train + 1) * cfg.num_eval * n_evals
+    expect = (cfg.epoch_eval_train + 1) * n_evals
     assert launches == expect, f"hal_fused: {launches} launches, {expect} expected"
-    # the first stage: the outer steps, each evaluation training step, and
-    # every net's test pass (test_repeats passes over ceil(N_test/64)
-    # batches, no grad)
+    # the first stage: the outer steps, each batched evaluation training
+    # step, and each test batch, one forward of all nets (test_repeats
+    # passes over ceil(N_test/64) batches, no grad)
     outer = cfg.Iteration + 1
-    test_forwards = (n_evals * cfg.num_eval * EvalConfig().test_repeats
+    test_forwards = (n_evals * EvalConfig().test_repeats
                      * -(-len(data.test) // TEST_BATCH))
     want = first_order(expect, test_forwards)
     for k, n in per_outer_step(cfg.syn_steps).items():
@@ -1121,47 +1329,296 @@ def phase_pipeline(tmp):
     assert {"static_000000.png", "dynamic_000000.png",
             "videos_000000.png"} <= set(pngs), pngs
 
-    # timings on the distilled state: one evaluation training run (fp32,
-    # B=50) and one test pass, then one expert's epochs
+    # on the distilled state: one evaluation point of VMAP_NETS nets,
+    # batched and sequential (fp32, B=50), each with its training and test
+    # parts and its peak memory; then one batched step against the nets'
+    # sequential steps
     meta = data.meta
     ecfg = EvalConfig(model=cfg.model, epoch_eval_train=cfg.epoch_eval_train,
                       lr_net=float(holder["syn_lr"]), batch_train=cfg.batch_train,
                       mode="multi-static")
     s2d_cfg = S2DConfig(num_classes=meta.num_classes, frames=meta.frames,
                         im_size=tuple(meta.im_size))
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    train_s, (theta, model, _) = _synced_seconds(lambda: train_synset(
-        gen, None, None, meta, ecfg, s2d_cfg, holder["state"]))
-    batches = sample_test_batches(data, ecfg, np.random.default_rng(0), "cuda")
-    test_s, _ = _synced_seconds(lambda: run_test_pass(model, theta, meta, ecfg,
-                                                      batches))
-    n_test_batches = sum(clips.shape[0] for clips, _, _ in batches)
-    step_ms = train_s / (cfg.epoch_eval_train + 1) * 1e3
-    test_batch_ms = test_s / n_test_batches * 1e3
-    # the paper's protocol at this width: its training part, and the test
-    # part per 1000 test videos (the synthetic split has only 100; a real
-    # split's size scales it)
+    points = {mode: eval_point(data, ecfg, s2d_cfg, holder["state"], mode)
+              for mode in ("batched", "sequential", "sequential_again",
+                           "batched_again")}
+    test_batches = EvalConfig().test_repeats * -(-len(data.test) // TEST_BATCH)
+    seq_step_ms = points["sequential_again"]["train_s"] / (
+        VMAP_NETS * (cfg.epoch_eval_train + 1)) * 1e3
+    test_batch_ms = points["sequential_again"]["test_s"] / (
+        VMAP_NETS * test_batches) * 1e3
+    # the paper's protocol at this width: 501 epochs, and the test part
+    # per 1000 test videos (the synthetic split has only 100)
+    paper = {mode: {"train_seconds": (PAPER_EVAL["epoch_eval_train"] + 1)
+                    * point["train_s"] / (cfg.epoch_eval_train + 1),
+                    "test_seconds_per_1000_videos":
+                        point["test_s"] / test_batches
+                        * EvalConfig().test_repeats * -(-1000 // TEST_BATCH)}
+             for mode, point in points.items()}
     emit({"phase": "pipeline", "dataset": p["dataset"],
           "expert_driver_seconds": expert_s,
           "distill_run_seconds": distill_s,
           "accuracy": accs, "snapshot_sq_moves": moved,
           "hal_fused_launches": launches,
           "first_stage_launches": first_stage,
-          "ms_per_eval_train_step": step_ms,
-          "test_pass_seconds": test_s,
-          "test_clips_per_pass": len(data.test) * ecfg.test_repeats,
-          "ms_per_test_batch": test_batch_ms,
           "max_memory_allocated_gb": peak_gb,
-          "paper_eval_point_train_seconds":
-              PAPER_EVAL["num_eval"] * (PAPER_EVAL["epoch_eval_train"] + 1)
-              * step_ms / 1e3,
-          "paper_eval_point_test_seconds_per_1000_videos":
-              PAPER_EVAL["num_eval"] * ecfg.test_repeats
-              * -(-1000 // TEST_BATCH) * test_batch_ms / 1e3,
-          "paper_eval_point_seconds_synthetic_test_split":
-              PAPER_EVAL["num_eval"] * ((PAPER_EVAL["epoch_eval_train"] + 1)
-                                        * step_ms / 1e3 + test_s)})
-    return launches
+          "eval_point": points, "eval_nets": VMAP_NETS,
+          "ms_per_eval_train_step": seq_step_ms,
+          "ms_per_test_batch": test_batch_ms,
+          "test_clips_per_pass": len(data.test) * ecfg.test_repeats,
+          "paper_eval_point": paper,
+          "batched_step_vs_sequential": check_batched_step(
+              meta, ecfg, s2d_cfg, holder["state"])})
+    return launches, dict(cfg=cfg, data=data, holder=holder, buffer=paths[0],
+                          buf_dir=buf_dir, out_dir=out_dir)
+
+
+def eval_point(data, ecfg, s2d_cfg, state, mode):
+    """One evaluation point of VMAP_NETS nets on ``state`` through
+    ``evaluate_many``, batched or one net after the other: its synced
+    seconds, training and test parts, peak memory and accuracies."""
+    parts = {"train": [], "test": []}
+    saved = (evaluate.train_synsets, evaluate.train_synset,
+             evaluate.run_test_pass)
+    evaluate.train_synsets = _timed(saved[0], parts["train"])
+    evaluate.train_synset = _timed(saved[1], parts["train"])
+    evaluate.run_test_pass = _timed(saved[2], parts["test"])
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    try:
+        total, (results, mean, _) = _synced_seconds(lambda: evaluate_many(
+            gen, VMAP_NETS, None, None, data, ecfg, np.random.default_rng(0),
+            s2d_cfg, state, vmap_eval=mode.startswith("batched")))
+    finally:
+        (evaluate.train_synsets, evaluate.train_synset,
+         evaluate.run_test_pass) = saved
+    accs = [r.top1 for r in results]
+    assert all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs), accs
+    return {"seconds": total, "train_s": sum(parts["train"]),
+            "test_s": sum(parts["test"]), "top1": accs,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+@contextlib.contextmanager
+def phase_max_log(log):
+    """Record each phase max's winners (the (rows, O) uint8 index, on the
+    CPU) while the block runs: the folded batched call's or each net's."""
+    orig = pt.phase_argmax
+
+    def phase(y, rows_per_batch):
+        m, idx = orig(y, rows_per_batch)
+        log.append(idx.cpu())
+        return m, idx
+
+    pt.phase_argmax = phase
+    try:
+        yield log
+    finally:
+        pt.phase_argmax = orig
+
+
+
+def check_batched_step(meta, ecfg, s2d_cfg, state):
+    """One batched evaluation training step of VMAP_NETS nets against each
+    net's sequential step from the same draws (initial θ, permutation,
+    slot draws, dropout keep-mask): each net's change of θ within 1e-5
+    relative norm, or within 1e-2 where a phase max of the batched forward
+    picked another winner than the net's sequential forward (ROADMAP
+    C.13; later max-pools are not compared)."""
+    cfg1 = dataclasses.replace(ecfg, epoch_eval_train=0)  # one step
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n_syn = s2d_cfg.num_classes
+    bt = min(cfg1.batch_train, n_syn)
+    model, theta0, _ = evaluate.fresh_net(cfg1.model, meta, meta.frames, gen,
+                                          "cuda")
+    shape = model.keep_mask_shape(meta.frames, *meta.im_size)
+    draws, masks = [], []
+    for e in range(VMAP_NETS):
+        _, th, _ = evaluate.fresh_net(cfg1.model, meta, meta.frames, gen, "cuda")
+        rng = np.random.default_rng(100 + e)
+        draws.append(EvalDraws(
+            theta=th.cpu().numpy(), perms=rng.permutation(n_syn)[None],
+            slots=[[rng.integers(0, hi, bt) for hi in (s2d_cfg.spc,
+                                                       s2d_cfg.dpc, 1)]]))
+        masks.append(torch.as_tensor(rng.random((1, bt) + shape) < 0.5,
+                                     device="cuda"))
+    blog, slog = [], []
+    with phase_max_log(blog):
+        (thetas, _, _), n = launched(lambda: train_synsets(
+            None, VMAP_NETS, None, None, meta, cfg1, s2d_cfg, state, draws,
+            masks))
+    want = {"hal_fused": 1, "s2d2_pack": 1, "phase_argmax": 1,
+            "phase_scatter": 1}
+    if n != want:
+        raise AssertionError(f"batched step: launches {n}, expected {want}")
+    rows = []
+    for e in range(VMAP_NETS):
+        with phase_max_log(slog):
+            th, _, _ = train_synset(None, None, None, meta, cfg1, s2d_cfg,
+                                    state, draws[e], masks[e])
+        start = torch.as_tensor(draws[e].theta, device="cuda")
+        db, ds = (thetas[e] - start).double(), (th - start).double()
+        err = float((db - ds).norm() / ds.norm())
+        rows_n = slog[-1].shape[0]
+        flipped = int((blog[0][e * rows_n:(e + 1) * rows_n] != slog[-1]).sum())
+        cap = 1e-5 if flipped == 0 else 1e-2
+        if not err <= cap:
+            raise AssertionError(f"batched step net {e}: θ change {err} from "
+                                 f"the sequential step's (cap {cap}, "
+                                 f"{flipped} phase-max flips)")
+        rows.append({"net": e, "rel_err": err, "phase_max_flips": flipped})
+    return rows
+
+
+
+
+def _members(path):
+    with zipfile.ZipFile(path) as z:
+        return [(i.filename, z.read(i.filename)) for i in z.infolist()]
+
+
+def _same_bytes(a, b):
+    """Two npz files with the same members (the zip stamps the time of
+    writing), or two files with the same bytes."""
+    if a.endswith(".npz"):
+        return _members(a) == _members(b)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def phase_convert(tmp, pipe):
+    """The pipeline's own artifacts through the port's converter
+    (``drivers.convert``, its CLI) to the reference's ``.pt`` and back, each
+    byte-equal to the file it came from: the expert buffer, ``hal_0.npz``,
+    ``dynamic_0.npy`` and the static memory as an NHWC ``.npy``; then one
+    S2D-MTT step from the static that went ``.npy`` -> ``.pt`` -> ``.npy``."""
+    t0 = time.perf_counter()
+    cfg, data, holder = pipe["cfg"], pipe["data"], pipe["holder"]
+    meta = data.meta
+    work, back = os.path.join(tmp, "convert"), os.path.join(tmp, "convert_back")
+    os.makedirs(work), os.makedirs(back)
+    static = os.path.join(work, "images_0.npy")
+    np.save(static, holder["state"]["static"].cpu().numpy())
+    dims = ["--model", cfg.model, "--num_classes", str(meta.num_classes),
+            "--im_size", *map(str, meta.im_size), "--frames", str(meta.frames)]
+    sources = {"buffer": pipe["buffer"],
+               "hal": os.path.join(pipe["out_dir"], "hal_0.npz"),
+               "dynamic": os.path.join(pipe["out_dir"], "dynamic_0.npy"),
+               "static": static}
+    rows = {}
+    for kind, src in sources.items():
+        name, ext = os.path.basename(src).rsplit(".", 1)
+        pt_path = os.path.join(work, f"{name}.pt")
+        again = os.path.join(back, f"{name}.{ext}")
+        extra = dims if kind == "buffer" else []
+        convert.main([kind, src, pt_path, *extra])
+        convert.main([kind, pt_path, again, *extra])
+        if not _same_bytes(src, again):
+            raise AssertionError(f"convert {kind}: {src} -> .pt -> {again} "
+                                 "changed the bytes")
+        rows[kind] = {"bytes": os.path.getsize(src),
+                      "pt_bytes": os.path.getsize(pt_path)}
+    c2 = dataclasses.replace(cfg, path_static=os.path.join(back, "images_0.npy"),
+                             save_path=os.path.join(tmp, "convert_out"),
+                             Iteration=0, startIt=1)
+    losses = []
+    out = run(c2, data, MetricLogger(quiet=True),
+              step_hook=lambda it, o: losses.append(float(o[4])))
+    want = torch.as_tensor(np.load(c2.path_static), device="cuda")
+    assert torch.equal(out["state"]["static"], want), "static not as loaded"
+    assert len(losses) == 1 and np.isfinite(losses[0]), losses
+    emit({"phase": "convert", "artifacts": rows, "s2d_step_loss": losses[0],
+          "seconds": time.perf_counter() - t0, "ok": True})
+
+
+# the VideoConvNet family at full width: two heads evaluated (VMAP_NETS
+# nets batched, 3 epochs of one step on the 50-clip set; the evaluation's
+# 24:-24 crop makes 64x64 input), one raw DM step with a third
+ZOO = dict(eval_models=("VideoConvNetMean", "VideoConvNetLSTM"),
+           dm_model="VideoConvNetGRU", epoch_eval_train=2)
+
+
+def phase_zoo(data_path, tmp):
+    """The VideoConvNets on the baselines' store (50 classes, 112x112x16):
+    ``train_synsets`` (after a one-step run) and the batched test pass for
+    ZOO's evaluation models on a raw one-clip-a-class set, and one raw DM
+    step (the first at its shapes) through
+    ``distill_baseline.main`` with ZOO's DM model. Finite parameters and
+    losses, accuracies in [0, 1], none of the port's kernels launched (a
+    VideoConvNet is a 2-D ConvNet a frame); ms a step, peak memory."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_preset("DM")
+    cfg.dataset, cfg.data_path, cfg.device = BASELINES["dataset"], data_path, "cuda"
+    data = load_data(cfg)
+    meta = data.meta
+    syn, labels = init_synthetic_raw(None, data.train, 1, meta.frames, "real",
+                                     np.random.default_rng(0), "cuda")
+    rows = {}
+    for name in ZOO["eval_models"]:
+        ecfg = EvalConfig(model=name, epoch_eval_train=ZOO["epoch_eval_train"],
+                          lr_net=0.01, batch_train=256)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        # a one-step run first: cuDNN's first calls at these shapes
+        warm_s = _synced_seconds(lambda: train_synsets(
+            gen, VMAP_NETS, syn, labels, meta,
+            dataclasses.replace(ecfg, epoch_eval_train=0)))[0]
+        train_s, (thetas, model, acc_train) = _synced_seconds(
+            lambda: train_synsets(gen, VMAP_NETS, syn, labels, meta, ecfg))
+        batches = sample_test_batches(data, ecfg, np.random.default_rng(0),
+                                      "cuda")
+        test_s, tested = _synced_seconds(
+            lambda: run_test_pass(model, thetas, meta, ecfg, batches))
+        assert _finite(thetas), f"{name}: non-finite parameters"
+        top1 = [t[0] for t in tested]
+        assert all(0.0 <= a <= 1.0 for a in top1 + acc_train), (top1, acc_train)
+        assert all_launches() == {}, f"{name}: launched {all_launches()}"
+        rows[name] = {"params_per_net": int(thetas.shape[1]),
+                      "first_run_one_step_seconds": warm_s,
+                      "ms_per_batched_step":
+                          train_s / (ecfg.epoch_eval_train + 1) * 1e3,
+                      "test_pass_seconds": test_s, "acc_train": acc_train,
+                      "top1": top1, "max_memory_allocated_gb":
+                          torch.cuda.max_memory_allocated() / 2 ** 30}
+        del thetas, model
+        torch.cuda.empty_cache()
+    steps, losses = [], []
+
+    def check(out):
+        state, loss = out
+        losses.append(float(loss))
+        if not (np.isfinite(losses[-1]) and _finite(state.syn_images)):
+            raise AssertionError("zoo DM: non-finite loss or images")
+        if all_launches():
+            raise AssertionError(f"zoo DM: launched {all_launches()}")
+
+    real, chunks = [], []
+    saved = dm._DMTrainerBase.real_feats
+
+    def real_feats(self, *args):
+        chunks.append(self.chunk)
+        return _timed(saved, real)(self, *args)
+
+    torch.cuda.reset_peak_memory_stats()
+    dm._DMTrainerBase.real_feats = real_feats
+    try:
+        with checked_steps(dm.DMTrainer, check, steps):
+            distill_baseline.main(
+                ["--preset", "DM", "--model", ZOO["dm_model"],
+                 *_common_argv(data_path, os.path.join(tmp, "zoo_dm"), 0,
+                               False)],
+                logger=MetricLogger(quiet=True))
+    finally:
+        dm._DMTrainerBase.real_feats = saved
+    rows[ZOO["dm_model"]] = {
+        "dm_ms_per_step": steps[0] * 1e3, "dm_ms_real_embed": real[0] * 1e3,
+        "dm_loss": losses, "real_clips_per_chunk": chunks[0],
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit({"phase": "zoo", "models": rows,
+          "seconds": time.perf_counter() - t0, "ok": True})
 
 
 def phase_expert():
@@ -2120,16 +2577,21 @@ def main():
     use_exact_fp32()
     phase_build()
     rows = phase_check()
+    phase_check_vmap()
     phase_parity()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = phase_slice(tmp)
         rows.update(phase_check_first_stage())
         rows["hal_fused"] = phase_check_fused()
-        launches["hal_fused"] = phase_pipeline(tmp)
+        launches["hal_fused"], pipe = phase_pipeline(tmp)
+        phase_convert(tmp, pipe)
+        del pipe
         phase_expert()
         phase_static(tmp)
-        phase_frepo(phase_baselines(tmp), tmp)
+        data_path = phase_baselines(tmp)
+        phase_frepo(data_path, tmp)
+        phase_zoo(data_path, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, row in rows.items():

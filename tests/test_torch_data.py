@@ -32,10 +32,6 @@ def test_presets_match_jax(name):
     t = dataclasses.asdict(tconfig.get_preset(name))
     # the port's only extra field picks the device, CUDA unless asked
     assert t.pop("device", "cuda") == "cuda"
-    # batched num_eval evaluation is not ported (ROADMAP A.7b): off
-    if "vmap_eval" in t:
-        assert t["vmap_eval"] is False
-        t["vmap_eval"] = j["vmap_eval"]
     assert t == j
 
 

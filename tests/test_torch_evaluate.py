@@ -58,8 +58,9 @@ def _jax_draws(key, n_syn, cfg, s2d_cfg=None):
     from the run's own key."""
     k_init, k_perm, _, k_slots = jax.random.split(key, 4)
     model_def = jreg.create_model(cfg.model, 3, NC, (IM, IM), F)
-    params = model_def.init({"params": k_init, "dropout": k_init},
-                            jnp.zeros((1, F, IM, IM, 3)), train=False)["params"]
+    sample = jeval._video_crop(jnp.zeros((1, F, IM, IM, 3)), cfg.model)
+    params = model_def.init({"params": k_init, "dropout": k_init}, sample,
+                            train=False)["params"]
     epochs = cfg.epoch_eval_train + 1
     perms = jax.vmap(lambda k: jax.random.permutation(k, n_syn))(
         jax.random.split(k_perm, epochs))
@@ -199,9 +200,3 @@ def test_test_batches_match_jax():
         np.testing.assert_array_equal(gc.numpy(), np.asarray(rc))
         np.testing.assert_array_equal(gl.numpy(), np.asarray(rl))
         np.testing.assert_array_equal(gw.numpy(), np.asarray(rw))
-
-
-def test_vmap_eval_raises():
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        teval.evaluate_many(None, 2, torch.zeros(1), torch.zeros(1), None,
-                            teval.EvalConfig(), None, vmap_eval=True)

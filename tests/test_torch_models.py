@@ -149,11 +149,11 @@ def test_bf16_head_island_runs_the_head_in_fp32(pair):
 
 
 @pytest.mark.parametrize("name", ["ConvNetBN", "ConvNetASwishBN",
-                                  "ResNet18", "VideoConvNetMean"])
+                                  "ResNet18", "KIP_ConvNet"])
 def test_registry_names_the_roadmap_for_other_models(name):
-    """The 2-D ConvNet is ported (static learning); BatchNorm and the rest
-    of the zoo are not."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+    """The 2-D ConvNet (static learning) and the VideoConvNets are ported;
+    the image models come with the image datasets."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A.15b"):
         create_model(name, 3, 10, (32, 32))
 
 

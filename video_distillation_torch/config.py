@@ -1,8 +1,7 @@
 """Typed experiment configuration + named presets.
 
 A copy of ``video_distillation_tpu/config.py`` (the port imports nothing of
-the JAX package), plus the ``device`` field the port's drivers read; the
-port's ``vmap_eval`` defaults to False (ROADMAP A.7b).
+the JAX package), plus the ``device`` field the port's drivers read.
 
 Replaces the reference's per-driver argparse + frozen ``sh/`` scripts
 (the reference's ``sh/``, ``distill_baseline.py:366-417``,
@@ -68,9 +67,9 @@ class DistillConfig:
     eval_it: int = 500
     epoch_eval_train: int = 500
     startIt: int = 0
-    # train all num_eval nets as one batched model; not ported yet
-    # (ROADMAP A.7b), so the port evaluates them one after the other
-    vmap_eval: bool = False
+    # train all num_eval nets as one batched computation a step and test
+    # them together (False: one after the other)
+    vmap_eval: bool = True
 
     # execution
     device: str = "cuda"                 # 'cpu' only when asked for

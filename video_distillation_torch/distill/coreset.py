@@ -22,7 +22,7 @@ import torch
 
 from ..data.store import ClipStore
 from ..models.registry import create_model
-from .dm import norm_stats, real_features
+from .dm import norm_stats, real_chunk, real_features
 
 
 def _kcenter(features: np.ndarray, ipc: int) -> list:
@@ -82,7 +82,8 @@ def select_coreset(generator: Optional[torch.Generator], store: ClipStore,
         cls_idx = np.nonzero(store.labels == c)[0]
         feats = real_features(model, params, store, clips2d,
                               torch.as_tensor(cls_idx, device=device),
-                              norm_mean, norm_std, torch.float32, chunk)
+                              norm_mean, norm_std, torch.float32,
+                              real_chunk(model, frames, meta.im_size, chunk))
         chosen = cls_idx[selector(feats.cpu().numpy(), min(ipc, len(cls_idx)))]
         while len(chosen) < ipc:  # degenerate tiny class
             chosen = np.concatenate([chosen, chosen[: ipc - len(chosen)]])

@@ -39,6 +39,19 @@ from .s2d import (S2DConfig, distill_slots, grad_leaves, hallucinate,
 # trio's row index and cuDNN's 32-bit index math stop; the JAX package's
 # 640 would be 96% of it.
 REAL_CHUNK = 320
+# That budget for any model: a forward keeps its widest activation under
+# half of 2^31 elements (ROADMAP C.15). A model with a wider activation a
+# clip (a VideoConvNet's first conv at full resolution over every frame)
+# embeds fewer clips a chunk, and batched evaluation groups its nets by it.
+FOLD_ELEMENTS = 2 ** 30
+
+
+def real_chunk(model, frames: int, im_size, chunk: Optional[int] = None) -> int:
+    """Clips a forward of ``model``: ``chunk`` (``REAL_CHUNK`` by default),
+    or fewer where that many clips' widest activation would pass
+    ``FOLD_ELEMENTS``."""
+    return max(1, min(chunk or REAL_CHUNK, FOLD_ELEMENTS
+                      // model.clip_elements(frames, *im_size)))
 
 
 def init_synthetic_raw(generator: Optional[torch.Generator],
@@ -127,6 +140,7 @@ class _DMTrainerBase:
                                   tuple(meta.im_size), frames,
                                   device=self.device)
         self.model.requires_grad_(False)
+        self.chunk = real_chunk(self.model, frames, meta.im_size)
         self.norm_mean, self.norm_std = norm_stats(meta, self.device)
 
     def fresh_net(self, generator: Optional[torch.Generator]):
@@ -143,7 +157,7 @@ class _DMTrainerBase:
         (C, batch_real)."""
         feats = real_features(self.model, params, self.store, self.clips,
                               real_idx.reshape(-1), self.norm_mean,
-                              self.norm_std, self.cdt, REAL_CHUNK)
+                              self.norm_std, self.cdt, self.chunk)
         return feats.view(real_idx.shape[0], real_idx.shape[1], -1)
 
     def loss(self, params, feat_real, x, per_class: int):

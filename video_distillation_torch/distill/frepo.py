@@ -49,7 +49,7 @@ from torch.func import functional_call
 from ..data.store import ClipStore, normalize_u8
 from ..models.registry import create_model
 from ..ops.losses import lb_margin_th
-from .dm import REAL_CHUNK, embed, norm_stats, real_features
+from .dm import REAL_CHUNK, embed, norm_stats, real_chunk, real_features
 from .params import layout_for
 from .s2d import S2DConfig, hallucinate, hallucinate_frozen, init_s2d_state
 
@@ -371,10 +371,13 @@ class FRePoTrainer:
 
     def real_feats(self, params, real_idx):
         """(len(real_idx), D) features of the real clips ``real_idx``, no
-        gradient, in chunks of ``dm.REAL_CHUNK``."""
+        gradient, in chunks of ``dm.real_chunk`` (``dm.REAL_CHUNK`` for
+        ConvNet3D)."""
         return real_features(self.model, params, self.store, self.clips,
                              real_idx, self.norm_mean, self.norm_std,
-                             self.dtype, REAL_CHUNK)
+                             self.dtype, real_chunk(self.model, self.cfg.frames,
+                                                    self.store.meta.im_size,
+                                                    REAL_CHUNK))
 
     def proto_step(self, params, real_idx, hal_choice=None):
         """One Adam step of the synthetic state against the pool net

@@ -55,6 +55,14 @@ _TO_TORCH = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}
 _TO_JAX = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}
 
 
+def _dense_entries(top, name, linear) -> List[Entry]:
+    """A TorchDense's flax leaves (``Dense_0/bias``, ``/kernel`` (in, out))
+    for a torch Linear (weight (out, in))."""
+    o, i = linear.weight.shape
+    return [(top + ("Dense_0", "bias"), f"{name}.bias", (o,)),
+            (top + ("Dense_0", "kernel"), f"{name}.weight", (i, o))]
+
+
 def _to_torch_layout(a):
     return a.permute(*_TO_TORCH[a.dim()]) if a.dim() in _TO_TORCH else a
 
@@ -100,10 +108,30 @@ class JaxLayout:
             if model.net_norm != "none":
                 entries.append(((f"{norm}_{d}", "bias"), f"norms.{d}.bias", (o,)))
                 entries.append(((f"{norm}_{d}", "scale"), f"norms.{d}.weight", (o,)))
-        o, i = model.head.weight.shape
-        top = ("TorchDense_0", "Dense_0")
-        entries.append((top + ("bias",), "head.bias", (o,)))
-        entries.append((top + ("kernel",), "head.weight", (i, o)))
+        if model.head is not None:
+            entries += _dense_entries(("TorchDense_0",), "head", model.head)
+        return cls(entries)
+
+    @classmethod
+    def for_video_convnet(cls, model) -> "JaxLayout":
+        """The flax tree of ``VideoConvNet``: the per-frame backbone under
+        ``ConvNet2D_0``, the head's TorchDense, and the temporal head's
+        parameters (``_Recurrent_0``'s, or MLP's at the top level)."""
+        entries = [(("ConvNet2D_0",) + path, f"backbone.{name}", shape)
+                   for path, name, shape in cls.for_convnet2d(model.backbone).entries]
+        entries += _dense_entries(("TorchDense_0",), "head", model.head)
+        if model.head_kind == "mlp":
+            d, f, _ = model.temporal_weight.shape
+            entries.append((("temporal_bias",), "temporal_bias", (d, 1)))
+            entries.append((("temporal_weight",), "temporal_weight", (d, f, 1)))
+        elif model.head_kind != "mean":
+            rnn = model.recurrent
+            gh, d = rnn.weight_ih.shape
+            top = ("_Recurrent_0",)
+            entries.append((top + ("b_hh",), "recurrent.bias_hh", (gh,)))
+            entries.append((top + ("b_ih",), "recurrent.bias_ih", (gh,)))
+            entries.append((top + ("w_hh",), "recurrent.weight_hh", (gh // rnn.gates, gh)))
+            entries.append((top + ("w_ih",), "recurrent.weight_ih", (d, gh)))
         return cls(entries)
 
     @classmethod
@@ -239,11 +267,14 @@ def layout_for(model) -> JaxLayout:
     from ..models.convnet2d import ConvNet2D
     from ..models.convnet3d import ConvNet3D
     from ..models.hallucinator import Hallucinator
+    from ..models.video_nets import VideoConvNet
 
     if isinstance(model, ConvNet3D):
         return JaxLayout.for_convnet3d(model)
     if isinstance(model, ConvNet2D):
         return JaxLayout.for_convnet2d(model)
+    if isinstance(model, VideoConvNet):
+        return JaxLayout.for_video_convnet(model)
     if isinstance(model, Hallucinator):
         return JaxLayout.for_hallucinator(model.weight.shape[1])
     raise NotImplementedError(f"no JAX layout for {type(model).__name__}")

@@ -26,7 +26,11 @@ class ConvNet2D(nn.Module):
                  net_act: str = "relu", net_norm: str = "instancenorm",
                  net_pooling: str = "avgpooling",
                  im_size: Tuple[int, int] = (32, 32), *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 with_head: bool = True):
+        """``with_head=False`` builds the feature extractor alone (no Linear,
+        ``output='feat'`` only), as a flax ConvNet2D called for features
+        never creates its head (a VideoConvNet's backbone)."""
         super().__init__()
         if net_pooling not in ("maxpooling", "avgpooling", "none"):
             raise ValueError(f"unknown net_pooling: {net_pooling}")
@@ -43,7 +47,9 @@ class ConvNet2D(nn.Module):
             cin, h, w = net_width, h + 2 * pad - 2, w + 2 * pad - 2
             if net_pooling != "none":
                 h, w = h // 2, w // 2
-        self.head = nn.Linear(cin * h * w, num_classes, device=device)
+        self.feat_dim = cin * h * w
+        self.head = (nn.Linear(self.feat_dim, num_classes, device=device)
+                     if with_head else None)
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -51,10 +57,16 @@ class ConvNet2D(nn.Module):
         """A fresh net: torch-default convs and head from ``generator``, norm
         scales 1 and biases 0."""
         for m in (*self.convs, self.head):
-            init_conv_(m, generator)
+            if m is not None:
+                init_conv_(m, generator)
         for n in self.norms:
             if isinstance(n, nn.GroupNorm):
                 n.reset_parameters()
+
+    def clip_elements(self, frames: int, h: int, w: int) -> int:
+        """Elements of the widest activation ``frames`` (h, w) images make:
+        the first conv's output."""
+        return self.convs[0].out_channels * frames * h * w
 
     def forward(self, x, train: bool = True, output: str = "logits"):
         """``train`` is accepted for the JAX signature; no layer of this net

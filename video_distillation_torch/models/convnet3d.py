@@ -138,6 +138,26 @@ class ConvNet3D(nn.Module):
         return (self.fuse_first_stage and self.net_pooling == "maxpooling"
                 and self.net_act in _MONOTONE and h % 4 == 0 and w % 4 == 0)
 
+    def clip_elements(self, frames: int, h: int, w: int) -> int:
+        """Elements of the widest activation one (frames, h, w) clip makes:
+        the first conv's output before its pool (in the fused stage, the
+        GEMM's four pool phases at H/4 x W/4)."""
+        return self.convs[0].out_channels * frames * -(-h // 2) * -(-w // 2)
+
+    def keep_mask_shape(self, frames: int, h: int, w: int) -> Tuple[int, ...]:
+        """(T', H', W', C): one clip's dropout keep-mask in the JAX layout,
+        the shape of the head's input after its AvgPool."""
+        for d, conv in enumerate(self.convs):
+            h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1  # k 7, stride 2, pad 3
+            if self.net_pooling == "maxpooling":
+                frames = frames if d == 0 else frames // 2
+                h, w = h // 2, w // 2
+            elif self.net_pooling == "avgpooling":
+                frames, h, w = frames // 2, h // 2, w // 2
+        kt, kh, kw = (2, 2, 2) if self.im_size[0] > 64 else (2, 1, 1)
+        return (frames - kt + 1, h - kh + 1, w - kw + 1,
+                self.convs[-1].out_channels)
+
     def _dropout(self, x, keep_mask, generator):
         keep_prob = 1.0 - self.dropout_rate
         if keep_mask is None:

@@ -74,6 +74,19 @@ def avg_pool(x, window: Sequence[int], strides: Optional[Sequence[int]] = None):
 NORM_EPS = 1e-6
 
 
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` through ``torch.native_group_norm``, the op
+    ``F.group_norm`` reaches (the same result and derivatives), called
+    directly because ``F.group_norm``'s memory-format query has no vmap
+    rule (batched evaluation vmaps the 2-D ConvNets)."""
+
+    def forward(self, x):
+        n, c = x.shape[:2]
+        return torch.native_group_norm(x.contiguous(), self.weight, self.bias,
+                                       n, c, math.prod(x.shape[2:]),
+                                       self.num_groups, self.eps)[0]
+
+
 def norm_layer(net_norm: str, channels: int, device=None) -> Optional[nn.Module]:
     """The reference's norm names as torch modules (``layers.py:796-819``);
     None for 'none'. 'instancenorm' is GroupNorm(C groups) and 'groupnorm'
@@ -85,8 +98,8 @@ def norm_layer(net_norm: str, channels: int, device=None) -> Optional[nn.Module]
     if net_norm == "none":
         return None
     if net_norm in groups:
-        return nn.GroupNorm(groups[net_norm], channels, eps=NORM_EPS,
-                            device=device)
+        return GroupNorm(groups[net_norm], channels, eps=NORM_EPS,
+                         device=device)
     if net_norm == "batchnorm":
         raise NotImplementedError(
             "net_norm='batchnorm' is not ported yet (ROADMAP A.13)")
@@ -133,9 +146,11 @@ for _d in range(5):
 
 
 def s2d2_weight(weight):
-    """Conv3d weight (O, C, 3, 7, 7) -> the packed 2-D kernel (4O, 12C, 5, 5):
-    input channels (py, px, dt, c), output channels (ay, ax, o). A gather
-    (``layers.py:608-622``), so it stays differentiable to any order."""
+    """Conv3d weight (O, C, 3, 7, 7) -> the packed 2-D kernel (4O, 12C, 5, 5)
+    in channels-last storage: input channels (py, px, dt, c), output
+    channels (ay, ax, o). A gather (``layers.py:608-622``), so it stays
+    differentiable to any order; laid out channels-last by its permute
+    (``contiguous(memory_format=...)`` has no vmap rule)."""
     o, c = weight.shape[:2]
     # (O, C, kt, kh, kw) -> the JAX package's w2 (kh, kw, kt*C + c, O),
     # zero-padded by one tap in kh and kw for the empty slot 7
@@ -143,8 +158,10 @@ def s2d2_weight(weight):
     w2p = F.pad(w2, (0, 0, 0, 0, 0, 1, 0, 1))
     u = torch.as_tensor(_U2, device=weight.device)
     wg = w2p[u[:, :, :, None, None, None], u[None, None, None]]
-    # (dy, py, ay, dx, px, ax, ck, o) -> (ay, ax, o, py, px, ck, dy, dx)
-    return wg.permute(2, 5, 7, 1, 4, 6, 0, 3).reshape(4 * o, 12 * c, 5, 5)
+    # (dy, py, ay, dx, px, ax, ck, o) -> (ay, ax, o, dy, dx, py, px, ck),
+    # then viewed as (4O, 12C, 5, 5)
+    return (wg.permute(2, 5, 7, 0, 3, 1, 4, 6).reshape(4 * o, 5, 5, 12 * c)
+            .permute(0, 3, 1, 2))
 
 
 def s2d2_conv_pool(x, weight, bias):
@@ -156,8 +173,7 @@ def s2d2_conv_pool(x, weight, bias):
     b, f, h, w, c = x.shape
     o = weight.shape[0]
     xv = s2d2_pack(x).view(b * f, h // 2 + 4, w // 2 + 4, 12 * c)
-    ws = s2d2_weight(weight).contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(xv.permute(0, 3, 1, 2), ws, stride=2)
+    y = F.conv2d(xv.permute(0, 3, 1, 2), s2d2_weight(weight), stride=2)
     ho, wo = y.shape[2:]
     m = phase_max(y.permute(0, 2, 3, 1).reshape(-1, 4 * o), f * ho * wo)
     return m.view(b, o, f, ho, wo) + bias.view(1, o, 1, 1, 1)

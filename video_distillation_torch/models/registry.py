@@ -1,11 +1,13 @@
 """Model factory (port of ``video_distillation_tpu/models/registry.py``).
 
 Ported: ConvNet3D, built as the reference factory builds it (utils.py:
-608-609) with net_norm='none' and net_pooling='maxpooling', and the 2-D
-ConvNet with its depth, width, activation, norm and pooling variants
-(``ConvNetD*``, ``ConvNetW*``, ``ConvNetAS/AR/AL/ASwish``,
-``ConvNetNN/IN/GN/LN``, ``ConvNetNP/MP/AP``). The BatchNorm variants and
-the rest of the zoo raise (ROADMAP A.13).
+608-609) with net_norm='none' and net_pooling='maxpooling'; the video
+models ``VideoConvNet{Mean,MLP,LSTM,RNN,GRU}`` (per-frame ConvNet with a
+temporal head); and the 2-D ConvNet with its depth, width, activation,
+norm and pooling variants (``ConvNetD*``, ``ConvNetW*``,
+``ConvNetAS/AR/AL/ASwish``, ``ConvNetNN/IN/GN/LN``, ``ConvNetNP/MP/AP``).
+The image models (BatchNorm variants, the classic nets, FRePo's) raise:
+they come with the image datasets (ROADMAP A.15b).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from .convnet2d import ConvNet2D
 from .convnet3d import ConvNet3D
+from .video_nets import VideoConvNet
 
 DEFAULT_WIDTH, DEFAULT_DEPTH = 128, 3
 DEFAULT_ACT, DEFAULT_NORM, DEFAULT_POOLING = "relu", "instancenorm", "avgpooling"
@@ -53,6 +56,16 @@ def create_model(model: str, channel: int, num_classes: int,
                          net_pooling="maxpooling", frames=frames,
                          im_size=tuple(im_size), generator=generator,
                          device=device)
+    if model.startswith("VideoConvNet"):
+        head = model[len("VideoConvNet"):].lower()
+        if head not in ("mean", "mlp", "lstm", "rnn", "gru"):
+            raise ValueError(f"unknown model: {model}")
+        return VideoConvNet(channel=channel, num_classes=num_classes,
+                            net_width=DEFAULT_WIDTH, net_depth=DEFAULT_DEPTH,
+                            net_act=DEFAULT_ACT, net_norm=DEFAULT_NORM,
+                            net_pooling=DEFAULT_POOLING, im_size=tuple(im_size),
+                            frames=frames, head=head, generator=generator,
+                            device=device)
     kw = _convnet_kwargs(model)
     if kw is not None:
         base = dict(channel=channel, num_classes=num_classes,
@@ -61,9 +74,14 @@ def create_model(model: str, channel: int, num_classes: int,
                     net_pooling=DEFAULT_POOLING, im_size=tuple(im_size))
         return ConvNet2D(**{**base, **kw}, generator=generator, device=device)
     raise NotImplementedError(
-        f"model {model!r} is not ported yet: only ConvNet3D and the 2-D "
-        "ConvNet variants without BatchNorm are; the rest of the model zoo "
-        "is ROADMAP A.13")
+        f"model {model!r} is not ported yet: the image models (the "
+        "BatchNorm ConvNets, MLP, LeNet, AlexNet, VGG, ResNet, FRePo's "
+        "nets) come with the image datasets (ROADMAP A.15b)")
+
+
+def is_video_model(model: str) -> bool:
+    """Models that consume (B, F, H, W, C) clips."""
+    return model == "ConvNet3D" or model.startswith("VideoConvNet")
 
 
 def get_eval_pool(eval_mode: str, model: str, model_eval: Optional[str] = None):

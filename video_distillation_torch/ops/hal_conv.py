@@ -19,9 +19,13 @@ kernel does not take; for CPU tensors, and only for those, it computes the
 plain version (naive broadcast + concat + ``F.conv3d``, gradients by
 autograd). ``LAUNCHES`` counts kernel launches per wrapper.
 
-``HalConv`` wires the three together as a ``torch.autograd.Function``. It
-has no double backward: the hallucinator sits outside the MTT inner
-unroll, so its outputs are only ever differentiated once.
+``HalConv`` wires the three together as a ``torch.autograd.Function``
+(its backward through ``HalDgrad`` and ``HalWgrad``). It has no double
+backward: the hallucinator sits outside the MTT inner unroll, so its
+outputs are only ever differentiated once. Each Function has a
+``torch.func.vmap`` rule, the counterpart of the JAX primitive's batching
+rule: the nets fold into the sample axis and each kernel launches once;
+a mapped weight or bias raises, as the JAX rule does.
 """
 
 from __future__ import annotations
@@ -203,15 +207,26 @@ def hal_dgrad(g, weight, need_s: bool = True,
     return ds, dd
 
 
-def hal_wgrad(g, static, dynamic) -> Tuple[torch.Tensor, torch.Tensor]:
+def hal_wgrad(g, static, dynamic, nets: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 cotangents (dweight (3,4,3,3,3), dbias (3,)) from planar ȳ,
-    reduced over all samples."""
+    reduced over all samples; with ``nets`` > 1 the samples are that many
+    nets' batches folded net-major, and each net's sums come back apart,
+    (nets, 3,4,3,3,3) and (nets, 3), from the same single launch (the
+    kernel's per-(band, sample) partials summed per net)."""
     _check_shapes(static, dynamic)
     b, frames, h, w, _ = dynamic.shape
     if tuple(g.shape) != (b, 3, frames, h, w):
         raise ValueError(f"ȳ must be {(b, 3, frames, h, w)}, got {tuple(g.shape)}")
+    if nets < 1 or b % nets:
+        raise ValueError(f"hal_wgrad: {nets} nets do not divide the batch {b}")
     if _on_cpu(g, static, dynamic):
-        return hal_wgrad_plain(g, static, dynamic)
+        if nets == 1:
+            return hal_wgrad_plain(g, static, dynamic)
+        per = [hal_wgrad_plain(*(t.unflatten(0, (nets, -1))[v]
+                                 for t in (g, static, dynamic)))
+               for v in range(nets)]
+        return (torch.stack([dk for dk, _ in per]),
+                torch.stack([db for _, db in per]))
     _check_cuda_inputs("hal_wgrad", g, static, dynamic)
     nchunk = -(-h // _WGRAD_BAND_ROWS)
     part = torch.empty(nchunk * b, 327, device=g.device, dtype=torch.float32)
@@ -221,18 +236,44 @@ def hal_wgrad(g, static, dynamic) -> Tuple[torch.Tensor, torch.Tensor]:
                           out.data_ptr(), b, frames, h, w, _stream())
     _check_rc(rc, "hal_wgrad")
     LAUNCHES["hal_wgrad"] += 1
-    dk = out[:324].view(3, 3, 3, 4, 3).permute(4, 3, 0, 1, 2)
-    return dk, out[324:]
+    if nets > 1:  # part is (band, sample, 327)
+        out = part.view(nchunk, nets, b // nets, 327).sum((0, 2))
+    dk = out[..., :324].unflatten(-1, (3, 3, 3, 4, 3))
+    return dk.permute(*range(dk.dim() - 5), -1, -2, -5, -4, -3), out[..., 324:]
+
+
+# ---------------------------------------------------------------------------
+# autograd and vmap
+#
+# Each Function has the forward / setup_context form and a ``vmap`` rule,
+# the counterpart of the JAX primitive's batching rule (hal_vjp.py:396-426):
+# the rule moves the mapped axis to the front, broadcasts an unmapped
+# operand to the mapped size, folds the nets into the sample axis and makes
+# ONE call of the unbatched Function, so a batched call launches each
+# kernel once. A backward calls Functions only (never the wrappers), so it
+# runs batched too when ``torch.func.vmap`` wraps ``torch.func.grad``.
+# ---------------------------------------------------------------------------
+
+def _nets_first(info, in_dims, *tensors):
+    """Each tensor with the mapped axis in front (an unmapped one broadcast
+    to the batch size), contiguous."""
+    return [(t.movedim(d, 0) if d is not None
+             else t.unsqueeze(0).expand(info.batch_size, *t.shape)).contiguous()
+            for t, d in zip(tensors, in_dims)]
 
 
 class HalConv(torch.autograd.Function):
-    """y_planar = hal_fwd(...); backward = hal_dgrad (for the inputs that
-    need it) + hal_wgrad."""
+    """y_planar = hal_fwd(...); backward = HalDgrad (for the inputs that
+    need it) + HalWgrad."""
 
     @staticmethod
-    def forward(ctx, static, dynamic, weight, bias):
-        ctx.save_for_backward(static, dynamic, weight)
+    def forward(static, dynamic, weight, bias):
         return hal_fwd(static, dynamic, weight, bias)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        static, dynamic, weight, _ = inputs
+        ctx.save_for_backward(static, dynamic, weight)
 
     @staticmethod
     @once_differentiable
@@ -240,13 +281,73 @@ class HalConv(torch.autograd.Function):
         static, dynamic, weight = ctx.saved_tensors
         need_s, need_d, need_w, need_b = ctx.needs_input_grad
         g = g.contiguous()
-        ds, dd = hal_dgrad(g, weight, need_s, need_d)
-        dw = db = None
+        ds = dd = dw = db = None
+        if need_s or need_d:
+            ds, dd = HalDgrad.apply(g, weight, need_s, need_d)
         if need_w or need_b:
-            dk, dbias = hal_wgrad(g, static, dynamic)
+            dk, dbias = HalWgrad.apply(g, static, dynamic)
             dw = dk.to(weight.dtype) if need_w else None
             db = dbias.to(weight.dtype) if need_b else None
         return ds, dd, dw, db
+
+    @staticmethod
+    def vmap(info, in_dims, static, dynamic, weight, bias):
+        if in_dims[2] is not None or in_dims[3] is not None:
+            raise NotImplementedError(
+                "hal_conv: vmap over the weight or bias is not supported; "
+                "per-net hallucinator parameters take the plain module "
+                "(hal_fwd_plain)")
+        s, d = _nets_first(info, in_dims, static, dynamic)
+        v, b = d.shape[:2]
+        y = HalConv.apply(s.flatten(0, 1), d.flatten(0, 1), weight, bias)
+        return y.unflatten(0, (v, b)), 0
+
+
+class HalDgrad(torch.autograd.Function):
+    """(ds, dd) = hal_dgrad(ȳ, weight); a flag left False gives None. Used
+    inside HalConv's backward only (no backward of its own)."""
+
+    @staticmethod
+    def forward(g, weight, need_s, need_d):
+        return hal_dgrad(g, weight, need_s, need_d)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, g, weight, need_s, need_d):
+        if in_dims[1] is not None:
+            raise NotImplementedError(
+                "hal_dgrad: vmap over the weight is not supported")
+        (g,) = _nets_first(info, in_dims[:1], g)
+        v, b = g.shape[:2]
+        out = HalDgrad.apply(g.flatten(0, 1), weight, need_s, need_d)
+        return (tuple(None if t is None else t.unflatten(0, (v, b))
+                      for t in out),
+                tuple(None if t is None else 0 for t in out))
+
+
+class HalWgrad(torch.autograd.Function):
+    """(dweight, dbias) = hal_wgrad(ȳ, static, dynamic), summed over the
+    samples. Batched, each net's sums stay apart (one launch). Used inside
+    HalConv's backward only (no backward of its own)."""
+
+    @staticmethod
+    def forward(g, static, dynamic, nets=1):
+        return hal_wgrad(g, static, dynamic, nets)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, g, static, dynamic, nets=1):
+        if nets != 1:
+            raise NotImplementedError("hal_wgrad: nested vmap")
+        g, s, d = _nets_first(info, in_dims[:3], g, static, dynamic)
+        return HalWgrad.apply(g.flatten(0, 1), s.flatten(0, 1),
+                              d.flatten(0, 1), info.batch_size), (0, 0)
 
 
 def hal_conv(static, dynamic, weight, bias):

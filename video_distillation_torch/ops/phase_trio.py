@@ -27,6 +27,8 @@ The autograd closure mirrors ``phase_trio.py:169-194``:
 ``PhaseSelect`` are each other's backward, all with the forward's idx as a
 constant. That keeps them differentiable to any order inside the MTT
 unroll's ``create_graph`` pass; none may be ``once_differentiable``.
+Each has a ``torch.func.vmap`` rule (below) that folds the nets into the
+rows and launches its kernel once.
 """
 
 from __future__ import annotations
@@ -193,32 +195,70 @@ def phase_scatter(c, idx, rows_per_batch: int):
     return out
 
 
+# The vmap rules mirror ``_fold_rows`` / ``_bin_batcher`` (phase_trio.py:
+# 205-225): the mapped axis goes to the front and folds into the rows, as
+# (V*N, 4O), and ONE call of the unbatched Function runs on them. The nets
+# are the outermost part of the rows, so with N % G == 0 no G-row group
+# straddles two nets and a planar (V*N/G, O, G) result reshapes to
+# (V, N/G, O, G). Select and scatter need both operands mapped, as in JAX.
+
+def _fold(t, d):
+    """(V*N, ...) contiguous rows of a mapped operand, and N."""
+    t = t.movedim(d, 0)
+    return t.flatten(0, 1).contiguous(), t.shape[1]
+
+
+def _check_groups(n: int, rows_per_batch: int):
+    if rows_per_batch <= 0 or n % rows_per_batch:
+        raise ValueError(f"vmap: rows_per_batch {rows_per_batch} must divide "
+                         f"each net's N={n}, so no group straddles two nets")
+
+
+def _both_mapped(name, in_dims):
+    if in_dims[0] is None or in_dims[1] is None:
+        raise NotImplementedError(f"{name}: both operands must share the "
+                                  "vmapped axis")
+
+
 class PhaseArgmax(torch.autograd.Function):
     """(m, idx) = phase_argmax(y); m's backward is PhaseScatter, idx has
     none."""
 
     @staticmethod
-    def forward(ctx, y, rows_per_batch):
-        m, idx = phase_argmax(y, rows_per_batch)
-        ctx.mark_non_differentiable(idx)
-        ctx.save_for_backward(idx)
-        ctx.rows_per_batch = rows_per_batch
-        return m, idx
+    def forward(y, rows_per_batch):
+        return phase_argmax(y, rows_per_batch)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(output[1])
+        ctx.rows_per_batch = inputs[1]
 
     @staticmethod
     def backward(ctx, g, _):
         (idx,) = ctx.saved_tensors
         return PhaseScatter.apply(g.contiguous(), idx, ctx.rows_per_batch), None
 
+    @staticmethod
+    def vmap(info, in_dims, y, rows_per_batch):
+        y, n = _fold(y, in_dims[0])
+        _check_groups(n, rows_per_batch)
+        m, idx = PhaseArgmax.apply(y, rows_per_batch)
+        v = info.batch_size
+        return (m.unflatten(0, (v, -1)), idx.unflatten(0, (v, n))), (0, 0)
+
 
 class PhaseSelect(torch.autograd.Function):
     """Linear in t for a constant idx; its backward is PhaseScatter."""
 
     @staticmethod
-    def forward(ctx, t, idx, rows_per_batch):
-        ctx.save_for_backward(idx)
-        ctx.rows_per_batch = rows_per_batch
+    def forward(t, idx, rows_per_batch):
         return phase_select(t, idx, rows_per_batch)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])
+        ctx.rows_per_batch = inputs[2]
 
     @staticmethod
     def backward(ctx, g):
@@ -226,21 +266,42 @@ class PhaseSelect(torch.autograd.Function):
         return (PhaseScatter.apply(g.contiguous(), idx, ctx.rows_per_batch),
                 None, None)
 
+    @staticmethod
+    def vmap(info, in_dims, t, idx, rows_per_batch):
+        _both_mapped("phase_select", in_dims)
+        t, n = _fold(t, in_dims[0])
+        idx, _ = _fold(idx, in_dims[1])
+        _check_groups(n, rows_per_batch)
+        out = PhaseSelect.apply(t, idx, rows_per_batch)
+        return out.unflatten(0, (info.batch_size, -1)), 0
+
 
 class PhaseScatter(torch.autograd.Function):
     """Linear in c for a constant idx; its backward is PhaseSelect."""
 
     @staticmethod
-    def forward(ctx, c, idx, rows_per_batch):
-        ctx.save_for_backward(idx)
-        ctx.rows_per_batch = rows_per_batch
+    def forward(c, idx, rows_per_batch):
         return phase_scatter(c, idx, rows_per_batch)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])
+        ctx.rows_per_batch = inputs[2]
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         return (PhaseSelect.apply(g.contiguous(), idx, ctx.rows_per_batch),
                 None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, c, idx, rows_per_batch):
+        _both_mapped("phase_scatter", in_dims)
+        c, _ = _fold(c, in_dims[0])  # planar (V*N/G, O, G)
+        idx, n = _fold(idx, in_dims[1])
+        _check_groups(n, rows_per_batch)
+        out = PhaseScatter.apply(c, idx, rows_per_batch)
+        return out.unflatten(0, (info.batch_size, n)), 0
 
 
 def phase_max(y, rows_per_batch: int):

@@ -17,7 +17,9 @@ its plain version. ``LAUNCHES`` counts kernel launches per wrapper.
 other's backward, like the JAX primitives' transposes. Both maps are
 linear, so this closes them under any order of differentiation: the MTT
 unroll's second-order pass differentiates ``Pack``'s backward (an
-``Unpack``) once more. Neither may be ``once_differentiable``.
+``Unpack``) once more. Neither may be ``once_differentiable``. Each has a
+``torch.func.vmap`` rule that folds the nets into the batch axis and
+launches its kernel once.
 """
 
 from __future__ import annotations
@@ -151,29 +153,54 @@ def unpack_sum(g, h: int, w: int):
     return out
 
 
+# vmap rules (s2d2_move.py:200-212): (V, B, ...) folds to (V*B, ...), one
+# call of the unbatched Function, and the result unfolds.
+
+def _fold_batch(t, d):
+    t = t.movedim(d, 0)
+    return t.flatten(0, 1).contiguous(), t.shape[:2]
+
+
 class Pack(torch.autograd.Function):
     """xv = pack(x); backward = Unpack (twice differentiable)."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.hw = tuple(x.shape[2:4])
+    def forward(x):
         return pack(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.hw = tuple(inputs[0].shape[2:4])
 
     @staticmethod
     def backward(ctx, g):
         return Unpack.apply(g.contiguous(), *ctx.hw)
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        x, vb = _fold_batch(x, in_dims[0])
+        return Pack.apply(x).unflatten(0, vb), 0
 
 
 class Unpack(torch.autograd.Function):
     """x̄ = unpack_sum(ḡ); backward = Pack (twice differentiable)."""
 
     @staticmethod
-    def forward(ctx, g, h, w):
+    def forward(g, h, w):
         return unpack_sum(g, h, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, gx):
         return Pack.apply(gx.contiguous()), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, g, h, w):
+        g, vb = _fold_batch(g, in_dims[0])
+        return Unpack.apply(g, h, w).unflatten(0, vb), 0
 
 
 def s2d2_pack(x):
