@@ -197,6 +197,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              loss, accuracies in [0, 1], none of the port's kernels
              launched; ms a step and peak memory.
 
+13. images — the image side at CIFAR10's size (10 classes, 32x32x3,
+             50,000 training and 10,000 test images made from a seed as
+             class-mean colours plus noise, through ``from_arrays`` and
+             ``save_packed``): ``drivers.distill_coreset.main`` with k-center
+             on ConvNet at ipc 10 and the pool 'M' (MLP, ConvNet, LeNet,
+             AlexNet, VGG11, ResNet18), each evaluation 3 nets batched
+             (``distill_coreset`` runs them one after the other; the phase
+             patches in ``vmap_eval=True``), 20 + 1 epochs (its default:
+             1000), seconds per point scaled to its epochs, test-pass
+             seconds, peak memory, every chosen image of its class; raw DM
+             (``distill_baseline.main``, ConvNet, ipc 10, batch_real 256,
+             1 + 3 fp32 steps on the (N, 1, H, W, C) set); raw FRePo
+             (``s2d=False``, 3 steps); one training step of each pool-M net
+             and of Conv and KIP_ConvNet, and the BatchNorm modules' train
+             (with the running update) and eval forwards, fp32 on the card
+             and on the CPU against fp64 (the card within 3x of the CPU's
+             distance, or 1e-5, or 1e-2 where a max-pool flipped); ZCA
+             fitted on the host on the 50,000 images, applied and inverted
+             on the card (round trip within 1e-3). No kernel of the port
+             launches in the phase.
+
 Then the ``kernels`` line (launch counts: the three ``hal_conv`` and the
 five first-stage kernels from the bf16 slice run, ``hal_fused`` from the
 pipeline run's batched evaluations; the other paths' counts are in their
@@ -225,6 +246,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: CUDA is not available; this script needs a GPU")
 
 from video_distillation_torch.config import BufferConfig, get_preset  # noqa: E402
+from video_distillation_torch.data.image_datasets import \
+    from_arrays  # noqa: E402
 from video_distillation_torch.data.store import (  # noqa: E402
     load_packed, save_packed)
 from video_distillation_torch.data.synthetic import (  # noqa: E402
@@ -250,13 +273,17 @@ from video_distillation_torch.drivers import (  # noqa: E402
 from video_distillation_torch.drivers.common import load_data  # noqa: E402
 from video_distillation_torch.drivers.distill_s2d import (  # noqa: E402
     build_s2d, run)
-from video_distillation_torch.models import convnet3d  # noqa: E402
+from video_distillation_torch.models import (  # noqa: E402
+    classic, convnet3d, frepo_nets)
+from video_distillation_torch.models.registry import \
+    create_model  # noqa: E402
 from video_distillation_torch.models.hallucinator import \
     init_hallucinator  # noqa: E402
 from video_distillation_torch.ops import build, hal_conv as hc  # noqa: E402
 from video_distillation_torch.ops import hal_fused as hf  # noqa: E402
 from video_distillation_torch.ops import phase_trio as pt  # noqa: E402
 from video_distillation_torch.ops import s2d2_move as sm  # noqa: E402
+from video_distillation_torch.ops import zca  # noqa: E402
 from video_distillation_torch.utils.device import (  # noqa: E402
     step_generator, use_exact_fp32)
 from video_distillation_torch.utils.logging import MetricLogger  # noqa: E402
@@ -1621,6 +1648,334 @@ def phase_zoo(data_path, tmp):
           "seconds": time.perf_counter() - t0, "ok": True})
 
 
+# the image side at CIFAR10's size (its meta: 10 classes, 32x32x3; 5,000
+# training and 1,000 test images a class, made from a seed as class means
+# plus noise): distill_coreset's pool 'M' at ipc 10 with 3 nets, one after
+# the other as the driver runs them and then batched, epoch_eval_train cut
+# to 20 (its default: 1000); raw DM (ConvNet, ipc 10,
+# batch_real 256, fp32, 1 + 3 steps); raw FRePo (ConvNet, ppc 10, 3 steps)
+IMAGES = dict(dataset="CIFAR10", train_per_class=5000, test_per_class=1000,
+              noise=40.0, ipc=10, num_eval=3, epoch_eval_train=20,
+              driver_epochs=1000, dm_batch_real=256, dm_iterations=3,
+              frepo_steps=3, check_batch=50, seed=0)
+IMAGE_POOL = ("MLP", "ConvNet", "LeNet", "AlexNet", "VGG11", "ResNet18")
+IMAGE_STEP_NETS = IMAGE_POOL + ("Conv", "KIP_ConvNet")
+# the BatchNorm nets of the pools 'B' and 'N', and FRePo's KIP_ConvNet with
+# its 'batch' norm (flax momentum 0.1)
+IMAGE_BN_NETS = ("ConvNetBN", "AlexNetBN", "VGG11BN", "ResNet18BN",
+                 "KIP_ConvNet_batch")
+
+
+def image_store(tmp):
+    """The CIFAR10-sized store through ``from_arrays`` and ``save_packed``;
+    returns its data path."""
+    c = IMAGES
+    rng = np.random.default_rng(c["seed"])
+    mu = rng.integers(40, 215, size=(10, 3)).astype(np.float32)
+
+    def split(per_class):
+        y = np.repeat(np.arange(10), per_class)
+        x = np.empty((len(y), 32, 32, 3), np.uint8)
+        for i in range(0, len(y), 5000):
+            part = y[i:i + 5000]
+            noise = rng.standard_normal((len(part), 32, 32, 3),
+                                        dtype=np.float32) * c["noise"]
+            x[i:i + 5000] = np.clip(mu[part][:, None, None] + noise, 0, 255)
+        return x, y
+
+    data = from_arrays(c["dataset"], *split(c["train_per_class"]),
+                       *split(c["test_per_class"]))
+    path = os.path.join(tmp, "images_data")
+    save_packed(os.path.join(path, f"{c['dataset']}_packed"), data)
+    return path
+
+
+def images_coreset(data_path, data):
+    """k-center through ``distill_coreset.main`` on the store as users run
+    it: each pool-M net's ``num_eval`` nets trained one after the other
+    (the timers pass every call through unchanged). Then each net's
+    batched evaluation (``evaluate_many(..., vmap_eval=True)``, the default
+    of the distillation drivers) of the selected set, timed around the
+    call and in its training and test pass (pass-through timers), with
+    seconds per point scaled to the driver's default 1000 epochs. Peak memory, accuracies; none of the
+    port's kernels."""
+    c = IMAGES
+    select_s, seq_s = [], []
+    saved = (distill_coreset.select_coreset, distill_coreset.evaluate_many)
+    distill_coreset.select_coreset = _timed(saved[0], select_s)
+    distill_coreset.evaluate_many = _timed(saved[1], seq_s)
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run_s, (syn, labels, accs) = _synced_seconds(
+            lambda: distill_coreset.main(
+                ["--dataset", c["dataset"], "--data_path", data_path,
+                 "--model", "ConvNet", "--ipc", str(c["ipc"]),
+                 "--eval_mode", "M", "--num_eval", str(c["num_eval"]),
+                 "--epoch_eval_train", str(c["epoch_eval_train"]),
+                 "--seed", str(c["seed"]), "--device", "cuda"],
+                logger=MetricLogger(quiet=True)))
+    finally:
+        distill_coreset.select_coreset, distill_coreset.evaluate_many = saved
+    if all_launches():
+        raise AssertionError(f"coreset driver: launched {all_launches()}")
+    driver_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    store = data.train
+    assert syn.shape == (10 * c["ipc"], 32, 32, 3), syn.shape
+    assert labels.tolist() == np.repeat(np.arange(10), c["ipc"]).tolist()
+    for v, k in zip(syn, labels.tolist()):
+        idx = np.nonzero(store.labels == k)[0]
+        clips = store.normalize(torch.as_tensor(np.asarray(store.clips[idx]),
+                                                device="cuda"))
+        if not (clips == v).flatten(1).all(1).any():
+            raise AssertionError(f"coreset: an image of class {k} is not "
+                                 "from that class")
+    assert list(accs) == list(IMAGE_POOL), accs
+    assert len(seq_s) == len(IMAGE_POOL), seq_s
+
+    rows = {}
+    epochs = c["epoch_eval_train"] + 1
+    for i, name in enumerate(IMAGE_POOL):
+        # the driver's EvalConfig (its --lr_net 0.001, --batch_train 256)
+        ecfg = EvalConfig(model=name, epoch_eval_train=c["epoch_eval_train"],
+                          lr_net=0.001, batch_train=256, eval_mode="M")
+        gen = torch.Generator(device="cuda").manual_seed(c["seed"] + i)
+        train_s, test_s = [], []
+        saved_parts = (evaluate.train_synsets, evaluate.run_test_pass)
+        evaluate.train_synsets = _timed(saved_parts[0], train_s)
+        evaluate.run_test_pass = _timed(saved_parts[1], test_s)
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            point_s, (out, _, _) = _synced_seconds(lambda: evaluate_many(
+                gen, c["num_eval"], syn, labels, data, ecfg,
+                np.random.default_rng(c["seed"]), vmap_eval=True))
+        finally:
+            evaluate.train_synsets, evaluate.run_test_pass = saved_parts
+        if all_launches():
+            raise AssertionError(f"{name}: launched {all_launches()}")
+        mean, std = accs[name]
+        top1 = [r.top1 for r in out]
+        acc_train = [r.acc_train for r in out]
+        assert all(0.0 <= a <= 1.0 for a in top1 + acc_train + [mean]), (
+            name, top1, acc_train, mean)
+        rows[name] = {
+            "driver_sequential_s": seq_s[i],
+            "driver_top1_mean": mean, "driver_top1_std": std,
+            "batched_point_s": point_s, "batched_train_s": train_s[0],
+            "batched_test_pass_s": test_s[0],
+            # the training scaled, the rest (test pass, sampling the test
+            # batches) once
+            "batched_s_per_point_at_driver_epochs":
+                point_s + train_s[0] * ((c["driver_epochs"] + 1) / epochs - 1),
+            "batched_top1": top1, "batched_acc_train": acc_train,
+            "batched_max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit({"phase": "images_coreset", "driver_seconds": run_s,
+          "selection_seconds": select_s[0],
+          "driver_max_memory_allocated_gb": driver_gb, "nets": rows,
+          "ok": True})
+
+
+def images_dm(data_path, tmp):
+    """Raw DM through ``distill_baseline.main`` (the DM preset, fp32) with
+    ConvNet on the store: the (N, 1, H, W, C) set of the JAX package, 1 +
+    3 steps, each with no kernel of the port launched; ms a step."""
+    c = IMAGES
+    steps, losses = [], []
+
+    def check(out):
+        state, loss = out
+        losses.append(float(loss))
+        if not (np.isfinite(losses[-1]) and _finite(state.syn_images)):
+            raise AssertionError("images DM: non-finite loss or images")
+        assert state.syn_images.shape == (10 * c["ipc"], 1, 32, 32, 3)
+        if all_launches():
+            raise AssertionError(f"images DM: launched {all_launches()}")
+
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with checked_steps(dm.DMTrainer, check, steps):
+        distill_baseline.main(
+            ["--preset", "DM", "--dataset", c["dataset"], "--data_path",
+             data_path, "--model", "ConvNet", "--ipc", str(c["ipc"]),
+             "--batch_real", str(c["dm_batch_real"]),
+             "--Iteration", str(c["dm_iterations"]),
+             "--startIt", str(c["dm_iterations"] + 1),
+             "--save_path", os.path.join(tmp, "images_dm"),
+             "--seed", str(c["seed"]), "--device", "cuda"],
+            logger=MetricLogger(quiet=True))
+    assert len(steps) == c["dm_iterations"] + 1, steps
+    emit({"phase": "images_dm", "losses": losses,
+          "ms_per_step": float(np.mean(steps[1:])) * 1e3,
+          "first_step_ms": steps[0] * 1e3,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "ok": True})
+
+
+def images_frepo(data):
+    """Raw FRePo (``s2d=False``, ``frames=1``) with ConvNet on the store,
+    the trainer's defaults otherwise (10 pool nets, batch_real 512): 3
+    steps of finite loss that move the prototypes; no kernel launched."""
+    c = IMAGES
+    cfg = frepo.FRePoConfig(num_classes=10, ppc=c["ipc"], dpc=c["ipc"],
+                            frames=1, im_size=(32, 32), s2d=False)
+    tr = frepo.FRePoTrainer(data.train, "ConvNet", cfg,
+                            torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    before = tr.compose_eval().clone()
+    np_rng = np.random.default_rng(0)
+    steps, losses = [], []
+    reset_all_launches()
+    for it in range(c["frepo_steps"]):
+        gen = torch.Generator(device="cuda").manual_seed(it)
+        losses.append(_timed(tr.step, steps)(gen, np_rng)["loss"])
+    after = tr.compose_eval()
+    assert all(np.isfinite(losses)), losses
+    assert after.shape == (10 * c["ipc"], 32, 32, 3)
+    assert not torch.equal(after, before)
+    assert all_launches() == {}, all_launches()
+    emit({"phase": "images_frepo", "losses": losses,
+          "ms_per_step": float(np.mean(steps[1:])) * 1e3, "ok": True})
+
+
+@contextlib.contextmanager
+def image_pool_log(log):
+    """Append each max-pool's winners of the image nets built and run in
+    the block to ``log`` (their gradients follow them, ROADMAP C.13)."""
+    orig = classic.max_pool
+
+    def pool(x, window, strides=None):
+        _, idx = torch.nn.functional.max_pool2d(
+            x.detach(), tuple(window), stride=tuple(strides or window),
+            return_indices=True)
+        log.append({"kind": "max_pool", "idx": idx.cpu()})
+        return orig(x, window, strides)
+
+    classic.max_pool = pool
+    try:
+        yield log
+    finally:
+        classic.max_pool = orig
+
+
+def _image_net(name, device, dtype):
+    if name == "KIP_ConvNet_batch":
+        return frepo_nets.KIPConvNet(3, 10, normalization="batch",
+                                     generator=torch.Generator().manual_seed(0),
+                                     device="cpu").to(device, dtype)
+    return create_model(name, 3, 10, (32, 32), 1, device="cpu",
+                        generator=torch.Generator().manual_seed(0)).to(
+                            device, dtype)
+
+
+def check_images_card_vs_cpu(data):
+    """One training step of each pool-M net and of Conv and KIP_ConvNet,
+    and the BatchNorm modules' train-mode forward (with its running
+    update) and eval-mode forward, from the same θ and batch (the store's
+    first images, normalised) in fp32 on the card and on the CPU, each
+    against an fp64 CPU run. The card must be within 3x of the CPU fp32
+    run's distance from fp64 (relative norm), or within 1e-5; where a
+    max-pool of the card's forward picked another winner than fp64's
+    (C.13), within 1e-2 of fp64."""
+    n = IMAGES["check_batch"]
+    x = data.train.normalize(torch.as_tensor(
+        np.asarray(data.train.clips[::len(data.train) // n][:n])))
+    y = torch.as_tensor(data.train.labels[::len(data.train) // n][:n]).long()
+    runs_on = (("fp64", "cpu", torch.float64), ("cpu", "cpu", torch.float32),
+               ("card", "cuda", torch.float32))
+    rows = {}
+    for name in IMAGE_STEP_NETS:
+        runs, logs = {}, {}
+        for key, dev, dt in runs_on:
+            net = _image_net(name, dev, dt)
+            params = {k: v.detach().requires_grad_(True)
+                      for k, v in net.named_parameters()}
+            with image_pool_log(logs.setdefault(key, [])):
+                logits = torch.func.functional_call(
+                    net, params, (x.to(dev, dt),), dict(train=True))
+            loss = torch.nn.functional.cross_entropy(logits, y.to(dev))
+            grads = torch.autograd.grad(loss, list(params.values()))
+            runs[key] = (loss.reshape(1),
+                         torch.cat([g.reshape(-1) for g in grads]))
+        dist = {key: {k: _rel(t, r) for k, t, r in zip(
+            ("loss", "grad"), runs[key], runs["fp64"])}
+            for key in ("cpu", "card")}
+        flipped = {key: flips(logs[key], logs["fp64"], ("max_pool",))
+                   for key in ("cpu", "card")}
+        for k, v in dist["card"].items():
+            cap = (MTT_FP64_CAP if flipped["card"]
+                   else max(3 * dist["cpu"][k], 1e-5))
+            assert v <= cap, (f"{name} card vs CPU: {k} {v} from fp64, over "
+                              f"{cap} (CPU {dist['cpu'][k]}, flips {flipped})")
+        rows[name] = {"rel_norm_vs_fp64": dist, "max_pool_flips": flipped}
+    for name in IMAGE_BN_NETS:
+        runs = {}
+        for key, dev, dt in runs_on:
+            net = _image_net(name, dev, dt)
+            with torch.no_grad():
+                out = net(x.to(dev, dt), train=True)
+                stats = torch.cat([b.reshape(-1) for b in net.buffers()])
+                runs[key] = (out, stats, net(x.to(dev, dt), train=False))
+        dist = {key: {k: _rel(t, r) for k, t, r in zip(
+            ("train_out", "running_stats", "eval_out"), runs[key],
+            runs["fp64"])} for key in ("cpu", "card")}
+        for k, v in dist["card"].items():
+            cap = max(3 * dist["cpu"][k], 1e-5)
+            assert v <= cap, f"{name} BatchNorm card vs CPU: {k} {v} > {cap}"
+        rows[name] = {"rel_norm_vs_fp64": dist}
+    emit({"phase": "images_card_vs_cpu", "nets": rows, "ok": True})
+
+
+def images_zca(data):
+    """ZCA fitted on the host on the 50,000 normalised training images (a
+    3072^2 covariance, fp64), applied and inverted on the card: the round
+    trip within 1e-3 (JAX tests/test_ops_extra.py:14-23), the card's
+    whitening of 1,000 images within 1e-5 of the CPU's (of the largest
+    |value|)."""
+    meta = data.meta
+    mean = np.asarray(meta.mean, np.float32)
+    std = np.asarray(meta.std, np.float32)
+    x = ((data.train.clips.astype(np.float32) / 255.0 - mean) / std).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    state = zca.fit_zca(x, reg=0.1)
+    fit_s = time.perf_counter() - t0
+    xd = torch.from_numpy(x).cuda()
+    apply_s, w = _synced_seconds(lambda: zca.apply_zca(state, xd))
+    invert_s, back = _synced_seconds(lambda: zca.invert_zca(state, w))
+    round_trip = float((back - xd).abs().max())
+    assert round_trip <= 1e-3, round_trip
+    w_cpu = zca.apply_zca(state, torch.from_numpy(x[:1000]))
+    card_vs_cpu = float((w[:1000].cpu() - w_cpu).abs().max()
+                        / w_cpu.abs().max())
+    assert card_vs_cpu <= 1e-5, card_vs_cpu
+    emit({"phase": "images_zca", "images": int(x.shape[0]),
+          "fit_seconds_host": fit_s, "apply_ms": apply_s * 1e3,
+          "invert_ms": invert_s * 1e3, "round_trip_max_abs": round_trip,
+          "card_vs_cpu": card_vs_cpu, "ok": True})
+
+
+def phase_images(tmp):
+    """The image side at CIFAR10's size (IMAGES): the store, the coreset
+    driver's pool 'M', raw DM, raw FRePo, the card against the CPU, ZCA."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    data_path = image_store(tmp)
+    data = load_packed(os.path.join(data_path,
+                                    f"{IMAGES['dataset']}_packed"))
+    emit({"phase": "images_store", "seconds": time.perf_counter() - t0,
+          "train": data.train.clips.shape, "test": data.test.frames.shape,
+          "mb": (data.train.clips.nbytes + data.test.frames.nbytes) / 1e6})
+    images_coreset(data_path, data)
+    images_dm(data_path, tmp)
+    images_frepo(data)
+    check_images_card_vs_cpu(data)
+    images_zca(data)
+    emit({"phase": "images", "seconds": time.perf_counter() - t0,
+          "ok": True})
+
+
 def phase_expert():
     """One epoch of expert training in bf16 against fp32 on the same
     inputs, then the time of a bf16 expert step at the preset's batch."""
@@ -2592,6 +2947,7 @@ def main():
         data_path = phase_baselines(tmp)
         phase_frepo(data_path, tmp)
         phase_zoo(data_path, tmp)
+        phase_images(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, row in rows.items():

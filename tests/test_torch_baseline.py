@@ -42,6 +42,7 @@ from video_distillation_torch.drivers import (common, distill_baseline,
                                               distill_coreset, distill_s2d)
 from video_distillation_torch.models.registry import create_model
 from video_distillation_torch.utils.logging import MetricLogger
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, F, IM, STEPS = 3, 8, 64, 2
 

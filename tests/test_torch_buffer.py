@@ -32,6 +32,7 @@ from video_distillation_torch.distill import buffer as tbuf
 from video_distillation_torch.drivers import buffer as tdriver
 
 from test_torch_mtt import _fixed_dropout  # tests/ is on sys.path
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, F, IM = 4, 8, 64
 DATA = dict(num_classes=NC, clips_per_class=4, test_per_class=1, frames=F,

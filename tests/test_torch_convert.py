@@ -19,6 +19,7 @@ import torch
 from video_distillation_tpu.drivers import convert as jconv
 from video_distillation_torch.distill.mtt import TrajectoryBuffer
 from video_distillation_torch.drivers import convert as tconv
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, F, IM = 3, 8, 64
 BUF = dict(model="ConvNet3D", channel=3, num_classes=NC, im_size=(IM, IM),

@@ -11,16 +11,19 @@ max |port - jax| / max |jax| (or on the relative difference of a scalar):
 * ``match_loss``: 1e-5;
 * one DC matching step: loss 1e-5, updated images and momentum 1e-4 (a
   second-order gradient through the per-class cosine);
-* one ``inner_train`` (50 SGD steps) and one trainer iteration at spc=10
-  are chaotic at width 8: each within 3x (relative norm) of the distance
-  by which the JAX run itself moves when its net is perturbed by 1e-7
-  relative, fp32 rounding's size (see the tests);
-* one trainer iteration at spc=1: 1e-4.
+* one ``inner_train`` (50 SGD steps) is chaotic at width 8: within 3x
+  (relative norm) of the distance by which the JAX run itself moves when
+  its net is perturbed by 1e-7 relative, fp32 rounding's size (see the
+  test).
 
-Then ``get_loops``' missing row for spc=2 (ROADMAP C.11), the single-frame
-store and the 'real' initialisation (byte-equal), and the chain: the
-port's static driver on the CPU writes a static memory that the port's S2D
-driver reads through ``--path_static``.
+Then ``get_loops``' missing row for spc=2 (ROADMAP C.11) and the
+single-frame store and the 'real' initialisation (byte-equal). One trainer
+iteration is in ``test_torch_dc_iteration.py`` and the chain from the
+static driver to the S2D driver in ``test_torch_static_chain.py``: the
+tier-1 run hands out whole files to its workers, and these two took most
+of this file's time.
+
+torch runs on one thread in these files (``tests/torch_threads.py``).
 """
 
 import jax
@@ -50,6 +53,8 @@ from video_distillation_torch.drivers.distill_static import \
     to_single_frame_store
 from video_distillation_torch.models.registry import create_model
 from video_distillation_torch.ops import losses
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, IM, B = 3, 32, 4
 # the nets of the multi-step cases: XLA's CPU convolution gradients take
@@ -257,53 +262,6 @@ def test_inner_train_matches_jax():
                       flat(ref), flat(own))
 
 
-def _jax_iteration(jst, ipc, key, syn, mom, labels, net=None):
-    """The JAX trainer's iteration; ``net`` replaces its fresh net."""
-    build = jdc._build_dc_step
-    with pytest.MonkeyPatch.context() as mp:
-        if net is not None:
-            def with_net(*args):
-                _, match_fn, inner_fn = build(*args)
-                return ((lambda k, x: (net, jax.tree.map(jnp.zeros_like, net))),
-                        match_fn, inner_fn)
-            mp.setattr(jdc, "_build_dc_step", with_net)
-        trainer = jdc.make_dc_trainer(jst, NARROW, ipc, B, 0.1, 0.01)
-        out = trainer(key, jnp.asarray(syn), jnp.asarray(labels),
-                      jnp.asarray(mom), np.random.default_rng(2))
-    return np.asarray(out[0]) - syn, np.asarray(out[1]), out[2]
-
-
-@pytest.mark.parametrize("ipc", [1, 10])
-def test_trainer_iteration_matches_jax(ipc):
-    """One DC iteration, the port handed the JAX trainer's fresh net (its
-    ``init_fn(fold_in(key, 0))``). At spc=1 (one matching step) within
-    1e-4. At spc=10 the iteration is chaotic: the cosine of small gradient
-    rows turns the 1e-5 relative difference that fp32 rounding leaves in the
-    net after 50 SGD steps into a few percent of the next image gradient.
-    So the yardstick there is the JAX iteration's own distance from a run
-    whose fresh net is perturbed by 1e-7 relative (fp32 rounding's size):
-    the port must be within 3x of it in the image step, the momentum and
-    the mean loss (measured: 1.04x, 0.92x and 1.86x)."""
-    jst, (init_fn, _, _), trainer, syn, mom, labels = _dc_case(NARROW, ipc)
-    key = jax.random.PRNGKey(11)
-    params, _ = init_fn(jax.random.fold_in(key, 0), jnp.asarray(syn[:1]))
-    trainer.fresh_net = lambda generator: port_params(trainer.model, params)
-    psyn, pmom, ploss = trainer(None, torch.from_numpy(syn),
-                                torch.from_numpy(labels).long(),
-                                torch.from_numpy(mom), np.random.default_rng(2))
-    port = (psyn.numpy() - syn, pmom.numpy(), ploss)
-    ref = _jax_iteration(jst, ipc, key, syn, mom, labels)
-    if ipc == 1:
-        close(port[0], ref[0], 1e-4)
-        close(port[1], ref[1], 1e-4)
-        close(port[2], ref[2], 1e-5)
-        return
-    own = _jax_iteration(jst, ipc, key, syn, mom, labels, _perturbed(params))
-    names = ("image step", "momentum", "loss")
-    within_own_spread(dict(zip(names, port)), dict(zip(names, ref)),
-                      dict(zip(names, own)))
-
-
 def test_fresh_net_is_a_function_of_the_generator():
     _, pst = _stores()
     trainer = dc.make_dc_trainer(pst, "ConvNet", 1, B, 0.1, 0.01, device="cpu")
@@ -313,45 +271,3 @@ def test_fresh_net_is_a_function_of_the_generator():
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     assert not torch.equal(a["convs.0.weight"], c["convs.0.weight"])
     assert torch.equal(a["norms.0.weight"], torch.ones(128))
-
-
-def test_static_driver_feeds_the_s2d_driver(tmp_path):
-    """Static learning on the CPU at toy size writes
-    static_<dataset>_spc10.npy; the S2D driver (the s2d_MTT_ms_5 preset,
-    spc=10) takes one outer step with it as the frozen static. S2D draws
-    two static slots per video (``distill_slots``), so it needs spc >= 2,
-    and ``get_loops`` has no row for 2: spc=10 is the pair that runs."""
-    from video_distillation_torch.distill.mtt import (TrajectoryBuffer,
-                                                      flat_param_template)
-    from video_distillation_torch.drivers import distill_static
-    from video_distillation_torch.drivers.common import (load_data,
-                                                         parse_config_args)
-    from video_distillation_torch.drivers.distill_s2d import run
-    from video_distillation_torch.utils.logging import MetricLogger
-
-    ds, f, im = "synthetic_c3_n10_t1_f8_im64", 8, 64
-    path = distill_static.main([
-        "--dataset", ds, "--model", NARROW, "--spc", "10", "--batch_real",
-        "2", "--Iteration", "0", "--save_path", str(tmp_path / "static"),
-        "--device", "cpu"], logger=MetricLogger(quiet=True))
-    assert path == str(tmp_path / "static" / f"static_{ds}_spc10.npy")
-    static = np.load(path)
-    assert static.shape == (30, im, im, 3) and static.dtype == np.float32
-    assert np.isfinite(static).all()
-
-    thetas = [flat_param_template("ConvNet3D", 3, 3, (im, im), f,
-                                  torch.Generator().manual_seed(s), "cpu")[1]
-              for s in (0, 1)]
-    TrajectoryBuffer(torch.stack(thetas).numpy()[None]).save(
-        str(tmp_path / "replay_buffer_0.npz"))
-    cfg = parse_config_args("s2d", [
-        "--dataset", ds, "--path_static", path, "--buffer_path",
-        str(tmp_path), "--save_path", str(tmp_path / "out"), "--syn_steps",
-        "2", "--Iteration", "0", "--max_start_epoch", "1", "--startIt", "1",
-        "--device", "cpu"], default_preset="s2d_MTT_ms_5")
-    cfg.s2d = True
-    seen = []
-    holder = run(cfg, load_data(cfg), MetricLogger(quiet=True),
-                 step_hook=lambda it, out: seen.append(float(out[4])))
-    assert len(seen) == 1 and np.isfinite(seen[0])
-    np.testing.assert_array_equal(holder["state"]["static"].numpy(), static)

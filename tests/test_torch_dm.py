@@ -41,6 +41,7 @@ from video_distillation_torch.distill import dm
 from video_distillation_torch.distill.params import from_jax_params
 from video_distillation_torch.distill.s2d import S2DConfig, init_s2d_momentum
 from video_distillation_torch.models.hallucinator import Hallucinator
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, F, IM, BR = 3, 8, 64, 4
 MEAN = np.array([0.485, 0.456, 0.406], np.float32) * 255.0

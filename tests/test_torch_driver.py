@@ -27,6 +27,7 @@ from video_distillation_torch.drivers.distill_s2d import build_s2d, run
 from video_distillation_torch.utils.checkpoint import (restore_state,
                                                        save_state)
 from video_distillation_torch.utils.logging import MetricLogger
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, F, IM = 3, 8, 64
 

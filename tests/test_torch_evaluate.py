@@ -46,6 +46,7 @@ from video_distillation_torch.models.hallucinator import Hallucinator
 from video_distillation_torch.ops import metrics as tmetrics
 
 from test_torch_mtt import _fixed_dropout, rel_norm  # tests/ is on sys.path
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, F, IM = 3, 8, 64
 DATA = dict(num_classes=NC, clips_per_class=2, test_per_class=2, frames=F,

@@ -74,6 +74,7 @@ from video_distillation_torch.models.registry import create_model
 
 from test_torch_evaluate import _run_both  # tests/ is on sys.path
 from test_torch_mtt import _fixed_dropout, rel_norm
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, F, IM = 3, 8, 64
 DATA = dict(num_classes=NC, clips_per_class=6, test_per_class=2, frames=F,
@@ -136,16 +137,19 @@ def mask():
     return np.random.default_rng(1).random((NC, 1, 1, 1, 128)) < 0.5
 
 
-def _jax_run(stores, static, mask, pool_steps=0, **over):
-    """One JAX proto step from the trainer's initial carry (key 5, the real
-    batch and pool index from ``default_rng(7)``), then ``pool_steps``
-    steps of pool net 1 on the composed prototypes."""
+def _jax_run(stores, static, mask, pool_steps=0, model="ConvNet3D",
+             base=CFG, **over):
+    """One JAX proto step of ``model`` from the trainer's initial carry (key
+    5, the real batch and pool index from ``default_rng(7)``), then
+    ``pool_steps`` steps of pool net 1 on the composed prototypes (their
+    dropout applies ``mask``)."""
     jdata, _ = stores
-    cfg = jfrepo.FRePoConfig(**{**CFG, **over})
+    cfg = jfrepo.FRePoConfig(**{**base, **over})
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(flax.linen, "Dropout", _fixed_dropout(mask))
+        if mask is not None:
+            mp.setattr(flax.linen, "Dropout", _fixed_dropout(mask))
         (state0, opt0), step, pool, compose_eval = jfrepo.make_frepo_trainer(
-            jdata.train, "ConvNet3D", cfg, jax.random.PRNGKey(0),
+            jdata.train, model, cfg, jax.random.PRNGKey(0),
             static if cfg.s2d else None)
         fns = _closure(step)
         pool0 = [_pool_element(el) for el in pool.elements]
@@ -180,11 +184,11 @@ def jax_s2d(stores, static, mask):
     return _jax_run(stores, static, mask, pool_steps=3)
 
 
-def _port(stores, static, ref, **over):
+def _port(stores, static, ref, model="ConvNet3D", base=CFG, **over):
     """The port's trainer, carried to the JAX run's initial state."""
     _, tdata = stores
-    cfg = frepo.FRePoConfig(**{**CFG, **over})
-    tr = frepo.FRePoTrainer(tdata.train, "ConvNet3D", cfg, None,
+    cfg = frepo.FRePoConfig(**{**base, **over})
+    tr = frepo.FRePoTrainer(tdata.train, model, cfg, None,
                             static if cfg.s2d else None, "cpu")
     tr.load_state_dict(frepo_carry_from_jax(tr.model, ref["state0"],
                                             ref["pool0"]))

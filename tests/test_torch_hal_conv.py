@@ -21,6 +21,7 @@ from video_distillation_tpu.ops.pallas import hal_vjp
 from video_distillation_torch.distill.params import from_jax_params
 from video_distillation_torch.models.hallucinator import Hallucinator
 from video_distillation_torch.ops import hal_conv as hc
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, F, H, W = 2, 4, 16, 16
 TOL = dict(rtol=5e-4, atol=5e-4)

@@ -24,6 +24,7 @@ from video_distillation_torch.distill import s2d as ts2d
 from video_distillation_torch.distill.params import JaxLayout
 from video_distillation_torch.ops import hal_conv as hc
 from video_distillation_torch.ops import hal_fused as hf
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(b, f, h, w, seed=0):

@@ -25,6 +25,7 @@ from video_distillation_torch.distill.params import (from_jax_params,
                                                      layout_for)
 from video_distillation_torch.models import layers
 from video_distillation_torch.models.registry import create_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, F, IM, B = 3, 8, 64, 2
 REL = 1e-4
@@ -146,15 +147,6 @@ def test_bf16_head_island_runs_the_head_in_fp32(pair):
                                      bf["head.bias"].float())
     ref = ref[:, :, :, 0, 0].amax(dim=2).bfloat16()
     assert torch.equal(out, ref)
-
-
-@pytest.mark.parametrize("name", ["ConvNetBN", "ConvNetASwishBN",
-                                  "ResNet18", "KIP_ConvNet"])
-def test_registry_names_the_roadmap_for_other_models(name):
-    """The 2-D ConvNet (static learning) and the VideoConvNets are ported;
-    the image models come with the image datasets."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.15b"):
-        create_model(name, 3, 10, (32, 32))
 
 
 def test_flat_layout_counts_every_parameter(pair):

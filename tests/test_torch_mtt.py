@@ -29,6 +29,7 @@ from video_distillation_torch.distill import mtt as tmtt
 from video_distillation_torch.distill.params import from_jax_params
 from video_distillation_torch.distill.s2d import S2DConfig, init_s2d_momentum
 from video_distillation_torch.models.hallucinator import Hallucinator
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, F, IM, STEPS = 3, 8, 64, 2
 LRS = dict(lr_static=100.0, lr_dynamic=0.01, lr_hal=0.01, lr_lr=1e-5)

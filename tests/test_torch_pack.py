@@ -224,12 +224,6 @@ def test_evenly_spaced(n_total, n_pick):
     assert len(got) == n_pick
 
 
-@pytest.mark.parametrize("dataset", ["ImageNet", "CIFAR10", "MNIST"])
-def test_image_datasets_raise_naming_their_item(tmp_path, dataset):
-    with pytest.raises(NotImplementedError, match="A.15"):
-        packer.pack_dataset(dataset, str(tmp_path), str(tmp_path / "out"))
-
-
 def test_pack_driver_module_on_the_cpu(tree, tmp_path):
     """``python -m video_distillation_torch.drivers.pack`` packs the UCF
     fixture, and the port's load_data reads the result."""

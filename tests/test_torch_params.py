@@ -21,6 +21,7 @@ from video_distillation_torch.distill.params import (from_jax_params,
 from video_distillation_torch.models.convnet3d import ConvNet3D
 from video_distillation_torch.models.hallucinator import Hallucinator
 from video_distillation_torch.models.registry import create_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _torch_layout(a):

@@ -20,6 +20,7 @@ import torch
 from video_distillation_tpu.models.layers import _phase_max_xla
 from video_distillation_tpu.ops.pallas import phase_trio as jpt
 from video_distillation_torch.ops import phase_trio as pt
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, O = 48, 8
 # m's channel-planar layout: 4 batches of 12 rows, and one batch of all rows

@@ -17,6 +17,7 @@ from video_distillation_tpu.distill import s2d as js2d
 from video_distillation_torch.distill import s2d as ts2d
 from video_distillation_torch.distill.params import from_jax_params
 from video_distillation_torch.models.hallucinator import Hallucinator
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def jax_distill_draws(key, n):

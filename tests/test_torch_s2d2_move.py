@@ -24,6 +24,7 @@ import torch
 from video_distillation_tpu.models.layers import s2d2_pack as jax_xla_pack
 from video_distillation_tpu.ops.pallas import s2d2_move as jsm
 from video_distillation_torch.ops import s2d2_move as sm
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (B, F, H, W, C): the JAX tests' shape, one frame, H != W with C != 3, an
 # odd packed width (W/2 + 4 = 11), and one frame with an odd packed width

@@ -41,6 +41,7 @@ from video_distillation_torch.models import registry as treg
 
 from test_torch_evaluate import DATA, _jax_draws
 from test_torch_mtt import rel_norm
+from torch_threads import one_torch_thread  # noqa: F401
 
 NC, F, S = 3, 8, 16  # S: the cropped side
 HEADS = ["Mean", "MLP", "LSTM", "RNN", "GRU"]

@@ -48,6 +48,7 @@ from video_distillation_torch.ops import s2d2_move as sm
 
 from test_torch_evaluate import DATA, IM, MESH_ROWS, NC, F, _jax_draws
 from test_torch_mtt import _fixed_dropout, rel_norm
+from torch_threads import one_torch_thread  # noqa: F401
 
 E = 2
 MULTI = dict(model="ConvNet3D", epoch_eval_train=2, lr_net=0.01, batch_train=2)

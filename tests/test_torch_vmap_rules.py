@@ -20,6 +20,7 @@ from torch.func import grad, vmap
 from video_distillation_torch.ops import hal_conv as hc
 from video_distillation_torch.ops import phase_trio as pt
 from video_distillation_torch.ops import s2d2_move as sm
+from torch_threads import one_torch_thread  # noqa: F401
 
 E, B, F, H, W = 3, 2, 4, 6, 8
 O, G = 5, 6  # phase trio: O channels, G rows a batch

@@ -15,7 +15,9 @@ Ported so far: the paper's S2D-MTT pipeline, from offline packing
 buffers (``python -m video_distillation_torch.drivers.buffer``),
 distillation and the multi-static evaluation
 (``python -m video_distillation_torch.drivers.distill_s2d``), with all
-nine of the JAX package's Pallas kernels.
+nine of the JAX package's Pallas kernels; the baselines, FRePo, the video
+models, the converter, and the image side (image datasets, ZCA, EMA, every
+image net of the JAX ``create_model``).
 """
 
 __version__ = "0.1.0"

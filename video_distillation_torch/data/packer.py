@@ -17,8 +17,9 @@ from the exact on-disk layouts the reference consumes (its
 Train splits are packed as fixed clips (one temporal start drawn at pack
 time — the reference caches the start per index anyway, dataset.py:432-435);
 test splits keep all frames (ragged) so each evaluation pass can draw fresh
-temporal crops. The image datasets (ImageNet, MNIST, CIFAR, SVHN) need
-``data/image_datasets.py``, which is not ported yet (ROADMAP A.15).
+temporal crops. The image datasets (ImageNet, MNIST,
+FashionMNIST, SVHN, CIFAR10/100) are read by ``data/image_datasets.py``
+and written as image stores.
 """
 
 from __future__ import annotations
@@ -305,11 +306,21 @@ def pack_dataset(dataset: str, data_path: str, out_root: str,
         naming = "listing"
         tr = read_ssv2_json(root, "train")
         te = read_ssv2_json(root, "val")
-    elif dataset in ("ImageNet", "MNIST", "FashionMNIST", "SVHN", "CIFAR10",
+    elif dataset == "ImageNet":
+        from .image_datasets import load_imagenet
+
+        data = load_imagenet(data_path)
+        out = osp.join(out_root, f"{dataset}_packed")
+        save_packed(out, data)
+        return out
+    elif dataset in ("MNIST", "FashionMNIST", "SVHN", "CIFAR10",
                      "CIFAR100"):
-        raise NotImplementedError(
-            f"pack_dataset: {dataset} needs data/image_datasets.py, which is "
-            "not ported yet (ROADMAP A.15)")
+        from .image_datasets import load_image_dataset
+
+        data = load_image_dataset(dataset, data_path)
+        out = osp.join(out_root, f"{dataset}_packed")
+        save_packed(out, data)
+        return out
     else:
         raise ValueError(f"pack_dataset: unsupported dataset {dataset}")
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..data.store import ClipStore
-from ..models.registry import create_model
+from ..models.registry import path_model
 from .dm import norm_stats, real_chunk, real_features
 
 
@@ -60,16 +60,17 @@ def select_coreset(generator: Optional[torch.Generator], store: ClipStore,
                    model_name: str, ipc: int, method: str = "k-center",
                    frames: int = 16, params=None, chunk: int = 64,
                    device="cuda"):
-    """(syn_images (C*ipc, F, H, W, 3) normalised fp32, labels), on
-    ``device``. The net is drawn from ``generator`` unless ``params`` (the
-    torch parameter names, e.g. a JAX net through ``from_jax_params``) are
-    given. A class with fewer than ``ipc`` clips repeats its choices."""
+    """(syn_images (C*ipc, *item) normalised fp32, labels), on ``device``,
+    in the store's own item shape: (F, H, W, C) clips or (H, W, C) images.
+    The net is drawn from ``generator`` unless ``params`` (the torch
+    parameter names, e.g. a JAX net through ``from_jax_params``) are given.
+    A class with fewer than ``ipc`` clips repeats its choices."""
     meta = store.meta
     device = torch.device(device)
     selector = SELECTORS[method]
-    model = create_model(model_name, meta.channel, meta.num_classes,
-                         tuple(meta.im_size), frames, generator=generator,
-                         device=device)
+    model = path_model(model_name, meta.channel, meta.num_classes,
+                       tuple(meta.im_size), frames, generator=generator,
+                       device=device)
     model.requires_grad_(False)
     if params is None:
         params = dict(model.named_parameters())

@@ -25,7 +25,7 @@ import torch
 from torch.func import functional_call
 
 from ..data.store import ClipStore
-from ..models.registry import create_model
+from ..models.registry import path_model
 from ..ops.losses import cross_entropy, match_loss
 
 Params = Dict[str, torch.Tensor]
@@ -59,8 +59,8 @@ class DCTrainer:
                                                        batch_real)
         self.lr_img, self.lr_net, self.dis_metric = lr_img, lr_net, dis_metric
         self.device = torch.device(device)
-        self.model = create_model(model_name, meta.channel, meta.num_classes,
-                                  tuple(meta.im_size), 1, device=self.device)
+        self.model = path_model(model_name, meta.channel, meta.num_classes,
+                                tuple(meta.im_size), 1, device=self.device)
         self.model.requires_grad_(False)
         self.clips = store.device_clips(self.device)
 

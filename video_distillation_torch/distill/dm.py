@@ -27,7 +27,7 @@ import torch
 from torch.func import functional_call
 
 from ..data.store import ClipStore
-from ..models.registry import create_model
+from ..models.registry import path_model
 from ..ops.losses import dm_loss
 from .mtt import _DTYPES
 from .s2d import (S2DConfig, distill_slots, grad_leaves, hallucinate,
@@ -108,11 +108,12 @@ def real_features(model, params, store: ClipStore, clips2d, idx, norm_mean,
                   norm_std, cdt, chunk: int = REAL_CHUNK):
     """(len(idx), D) fp32 features of the clips ``idx`` (a 1-D index on
     the device of the store's ``clips2d``), standardised and embedded
-    ``chunk`` clips at a time, without gradient. No ported model has batch
-    statistics (ConvNet3D's norm is 'none'; the 2-D ConvNets' are per
-    sample), so the chunking does not change the function: the JAX
-    package's raw DM step (640-clip chunks), its S2D-DM step (one piece)
-    and its coreset embed (64) compute the same features."""
+    ``chunk`` clips at a time, without gradient. No path runs a model with
+    batch statistics (``path_model`` refuses the BatchNorm nets, ROADMAP
+    C.17; the other norms are per sample), so the chunking does not change
+    the function: the JAX package's raw DM step (640-clip chunks), its
+    S2D-DM step (one piece) and its coreset embed (64) compute the same
+    features."""
     return torch.cat([embed(model, params, standardize(
         store.gather_clips(clips2d, idx[i:i + chunk]), norm_mean, norm_std,
         cdt)) for i in range(0, idx.numel(), chunk)])
@@ -136,9 +137,9 @@ class _DMTrainerBase:
         # row-sharding the store over several cards is ROADMAP A.16: this
         # raises naming it
         self.clips = store.device_clips(self.device, sharded=shard_store)
-        self.model = create_model(model_name, meta.channel, meta.num_classes,
-                                  tuple(meta.im_size), frames,
-                                  device=self.device)
+        self.model = path_model(model_name, meta.channel, meta.num_classes,
+                                tuple(meta.im_size), frames,
+                                device=self.device)
         self.model.requires_grad_(False)
         self.chunk = real_chunk(self.model, frames, meta.im_size)
         self.norm_mean, self.norm_std = norm_stats(meta, self.device)

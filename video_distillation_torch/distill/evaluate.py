@@ -15,6 +15,10 @@ protocol only:
 * per-batch standardisation with scalar statistics over the valid rows
   (utils.py:770, :799), on top of the dataset normalisation;
 * 'Video*' models see a 24:-24 centre crop (utils.py:768-769);
+* image models train on (N, H, W, C) sets (an image store's coreset) or on
+  the raw drivers' (N, 1, H, W, C) ones (``models.layers.ImageModel``,
+  ROADMAP C.18), and are tested on the 1-frame test split without its
+  frame axis (evaluate.py:364-365);
 * mode 'multi-static' composes each batch from the frozen S2D state with
   fresh slot draws (utils.py:483-488) through ``hallucinate_frozen`` (the
   fused kernel on CUDA); mode 'none' trains on raw synthetic tensors;
@@ -62,6 +66,7 @@ import torch
 from torch.func import functional_call
 
 from ..data.store import VideoData, normalize_u8
+from ..models.registry import is_video_model
 from ..ops.metrics import per_class_correct, topk_correct
 from . import dm
 from .frepo import bias_correction
@@ -513,12 +518,15 @@ def sample_test_batches(data: VideoData, cfg: EvalConfig,
 @torch.no_grad()
 def run_test_pass(model, theta, meta, cfg: EvalConfig, test_batches):
     """The test pass (``_build_test_fn``, evaluate.py:351-382): uint8 ->
-    normalise -> standardise -> logits. Returns (top1, top3, top5,
-    per-class accuracy with NaN for classes without test clips); for a
+    normalise -> standardise -> logits; an image model's (B, 1, H, W, C)
+    test batch (an image store's 1-frame test split) loses its frame
+    axis. Returns (top1, top3, top5, per-class accuracy with NaN for
+    classes without test clips); for a
     stack of nets θ (E, P) a list of those, one per net, each test batch one
     batched forward of all nets (``vtest``, evaluate.py:553-561), in
     ``net_groups``."""
     layout = layout_for(model)
+    image_net = not is_video_model(cfg.model)
     batched = theta.dim() == 2
     thetas = theta if batched else theta[None]
     nets, dev = thetas.shape[0], theta.device
@@ -534,7 +542,10 @@ def run_test_pass(model, theta, meta, cfg: EvalConfig, test_batches):
     pc_cnt = torch.zeros(nets, meta.num_classes, device=dev)
     for clips, labels, weights in test_batches:
         for x_u8, y, wt in zip(clips, labels, weights):
-            x = _video_crop(normalize_u8(x_u8, meta.mean, meta.std), cfg.model)
+            x = normalize_u8(x_u8, meta.mean, meta.std)
+            if image_net and x.dim() == 5:
+                x = x[:, 0]  # image models: drop the singleton frame axis
+            x = _video_crop(x, cfg.model)
             x = _batch_standardize(x, wt)
             if batched:
                 logits = torch.cat([torch.func.vmap(logits_of, in_dims=(0, None))(

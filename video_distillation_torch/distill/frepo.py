@@ -47,7 +47,7 @@ import torch
 from torch.func import functional_call
 
 from ..data.store import ClipStore, normalize_u8
-from ..models.registry import create_model
+from ..models.registry import path_model
 from ..ops.losses import lb_margin_th
 from .dm import REAL_CHUNK, embed, norm_stats, real_chunk, real_features
 from .params import layout_for
@@ -278,9 +278,9 @@ class FRePoTrainer:
         self.num_classes = cfg.num_classes
         # row-sharding the store is ROADMAP A.16: this raises naming it
         self.clips = store.device_clips(self.device, sharded=shard_store)
-        self.model = create_model(model_name, meta.channel, cfg.num_classes,
-                                  tuple(meta.im_size), cfg.frames,
-                                  device=self.device)
+        self.model = path_model(model_name, meta.channel, cfg.num_classes,
+                                tuple(meta.im_size), cfg.frames,
+                                device=self.device)
         self.model.requires_grad_(False)
         self.norm_mean, self.norm_std = norm_stats(meta, self.device)
         self.y_train = torch.as_tensor(

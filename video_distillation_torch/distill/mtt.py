@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from ..models.registry import create_model
+from ..models.registry import path_model
 from .params import layout_for
 from .s2d import (S2DConfig, distill_slots, grad_leaves, hallucinate,
                   momentum_sgd, state_grads)
@@ -87,8 +87,8 @@ class MTTCore:
     def __init__(self, model_name: str, channel: int, num_classes: int,
                  im_size: Tuple[int, int], frames: int, syn_steps: int,
                  compute_dtype: str, device):
-        self.model = create_model(model_name, channel, num_classes,
-                                  tuple(im_size), frames, device=device)
+        self.model = path_model(model_name, channel, num_classes,
+                                tuple(im_size), frames, device=device)
         self.model.requires_grad_(False)
         self.layout = layout_for(self.model)
         self.syn_steps = syn_steps
@@ -341,8 +341,8 @@ def flat_param_template(model_name: str, channel: int, num_classes: int,
                         device=None) -> Tuple[torch.nn.Module, torch.Tensor]:
     """(model, θ) — a freshly initialised model and its flat vector in the
     JAX package's order (the counterpart of mtt.py:88-100)."""
-    model = create_model(model_name, channel, num_classes, tuple(im_size),
-                         frames, generator=generator, device=device)
+    model = path_model(model_name, channel, num_classes, tuple(im_size),
+                       frames, generator=generator, device=device)
     layout = layout_for(model)
     return model, layout.flatten(dict(model.named_parameters())).detach()
 

@@ -35,7 +35,16 @@ default instancenorm, P = 1,553,970)::
     TorchDense_0/Dense_0/bias (50,)  /kernel (25088, 50)
 
 with 2-D conv kernels HWIO (torch: OIHW), the dense kernel (in, out)
-(torch: (out, in)) and flax's norm ``scale`` the torch ``weight``.
+(torch: (out, in)) and flax's norm ``scale`` the torch ``weight``. Every
+image net (the classic nets, FRePo's, ``ConvNetBN``) names its flax tree
+in ``jax_tree`` (``models/layers.py:ImageModel``), from which
+``JaxLayout.for_image_net`` makes the layout: for example
+``TorchDense_0/Dense_0``, ``_BasicBlock_3/TorchConv_1/Conv_0``,
+``GroupNorm_0/scale``, ``Conv_2`` (flax's own conv in FRePo's nets). The
+keys sort as strings, so ``TorchConv_10`` comes before ``TorchConv_2`` (VGG16)
+and ``BatchNorm_0`` before ``TorchConv_0`` before ``_BasicBlock_0``. A
+BatchNorm's running statistics are flax's ``batch_stats`` collection, apart
+from θ (``batch_stats_from_jax``, ``batch_stats_to_jax``).
 """
 
 from __future__ import annotations
@@ -76,11 +85,8 @@ class JaxLayout:
 
     def __init__(self, entries: List[Entry]):
         self.entries = sorted(entries, key=lambda e: e[0])
-        self.offsets, off = [], 0
-        for _, _, shape in self.entries:
-            self.offsets.append(off)
-            off += math.prod(shape)
-        self.size = off
+        self.sizes = [math.prod(shape) for _, _, shape in self.entries]
+        self.size = sum(self.sizes)
 
     @classmethod
     def for_convnet3d(cls, model) -> "JaxLayout":
@@ -97,19 +103,41 @@ class JaxLayout:
         return cls(entries)
 
     @classmethod
-    def for_convnet2d(cls, model) -> "JaxLayout":
+    def for_image_net(cls, model) -> "JaxLayout":
+        """An image net's (``models.layers.ImageModel``: the 2-D ConvNets,
+        the classic nets, FRePo's) flax parameters, from its ``jax_tree``:
+        a conv's ``bias`` and HWIO ``kernel`` (under ``Conv_0`` for the JAX
+        ``TorchConv``), a dense's ``bias`` and (in, out) ``kernel`` (under
+        ``Dense_0`` for ``TorchDense``), a norm's ``bias`` and ``scale``."""
         entries = []
-        norm = "LayerNorm" if model.net_norm == "layernorm" else "GroupNorm"
-        for d, conv in enumerate(model.convs):
-            o, i, kh, kw = conv.weight.shape
-            top = (f"TorchConv_{d}", "Conv_0")
-            entries.append((top + ("bias",), f"convs.{d}.bias", (o,)))
-            entries.append((top + ("kernel",), f"convs.{d}.weight", (kh, kw, i, o)))
-            if model.net_norm != "none":
-                entries.append(((f"{norm}_{d}", "bias"), f"norms.{d}.bias", (o,)))
-                entries.append(((f"{norm}_{d}", "scale"), f"norms.{d}.weight", (o,)))
-        if model.head is not None:
-            entries += _dense_entries(("TorchDense_0",), "head", model.head)
+        for top, name, kind in model.jax_tree:
+            mod = model.get_submodule(name)
+            if kind in ("torchconv", "torchdense"):
+                top = top + ("Conv_0" if kind == "torchconv" else "Dense_0",)
+            w = mod.weight
+            if kind == "norm":
+                entries.append((top + ("scale",), f"{name}.weight", tuple(w.shape)))
+            else:
+                entries.append((top + ("kernel",), f"{name}.weight",
+                                tuple(w.shape[2:]) + (w.shape[1], w.shape[0])))
+            if mod.bias is not None:
+                entries.append((top + ("bias",), f"{name}.bias", (w.shape[0],)))
+        return cls(entries)
+
+    @classmethod
+    def batch_stats_of(cls, model) -> "JaxLayout":
+        """The flax ``batch_stats`` collection of an image net: each
+        BatchNorm's ``mean`` and ``var``, its ``running_mean`` and
+        ``running_var`` buffers (outside θ)."""
+        from ..models.layers import BatchNorm
+
+        entries = []
+        for top, name, kind in model.jax_tree:
+            mod = model.get_submodule(name)
+            if isinstance(mod, BatchNorm):
+                c = (mod.weight.shape[0],)
+                entries += [(top + ("mean",), f"{name}.running_mean", c),
+                            (top + ("var",), f"{name}.running_var", c)]
         return cls(entries)
 
     @classmethod
@@ -118,7 +146,7 @@ class JaxLayout:
         ``ConvNet2D_0``, the head's TorchDense, and the temporal head's
         parameters (``_Recurrent_0``'s, or MLP's at the top level)."""
         entries = [(("ConvNet2D_0",) + path, f"backbone.{name}", shape)
-                   for path, name, shape in cls.for_convnet2d(model.backbone).entries]
+                   for path, name, shape in cls.for_image_net(model.backbone).entries]
         entries += _dense_entries(("TorchDense_0",), "head", model.head)
         if model.head_kind == "mlp":
             d, f, _ = model.temporal_weight.shape
@@ -140,12 +168,16 @@ class JaxLayout:
                     (("kernel",), "weight", (3, 3, 3, cin, 3))])
 
     def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """torch-layout views into ``flat`` (differentiable, no copy)."""
+        """torch-layout views into ``flat`` (differentiable, no copy). One
+        ``split``: its backward concatenates the pieces' gradients once,
+        where a slice per piece would fill and add a zero vector of
+        ``flat``'s size each (62 of them for ResNet18)."""
         if flat.numel() != self.size:
             raise ValueError(f"flat vector has {flat.numel()} values, "
                              f"layout needs {self.size}")
-        return {name: _to_torch_layout(flat[off:off + math.prod(shape)].view(shape))
-                for (_, name, shape), off in zip(self.entries, self.offsets)}
+        return {name: _to_torch_layout(piece.view(shape))
+                for (_, name, shape), piece in zip(
+                    self.entries, torch.split(flat, self.sizes))}
 
     def flatten(self, params: Mapping[str, torch.Tensor]) -> torch.Tensor:
         return torch.cat([_to_jax_layout(params[name]).reshape(-1)
@@ -181,7 +213,7 @@ def to_jax_tree(layout: JaxLayout, params: Mapping[str, torch.Tensor]) -> dict:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         leaf = _to_jax_layout(params[name].detach().float().cpu())
-        node[path[-1]] = leaf.contiguous().numpy().reshape(shape)
+        node[path[-1]] = leaf.contiguous().numpy().reshape(shape).copy()
     return tree
 
 
@@ -193,8 +225,10 @@ def hal_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
 
 
 def from_jax_params(model, tree_or_flat) -> Dict[str, torch.Tensor]:
-    """The port's parameters for ``model`` (a ConvNet3D, a ConvNet2D or a
-    Hallucinator) from the JAX package's flax tree or flat vector."""
+    """The port's parameters for ``model`` (a ConvNet3D, an image net, a
+    VideoConvNet or a Hallucinator) from the JAX package's flax tree or
+    flat vector. A BatchNorm net's running statistics come apart
+    (``batch_stats_from_jax``)."""
     layout = layout_for(model)
     device = next(model.parameters()).device
     return layout.from_jax(tree_or_flat, device=device)
@@ -263,16 +297,35 @@ def frepo_carry_from_jax(model, state: Mapping, pool=(), opt=None,
     return {"state": st, "opt": opt_t, "pool": elements}
 
 
+def batch_stats_from_jax(model, tree) -> Dict[str, torch.Tensor]:
+    """Load a JAX ``batch_stats`` tree into a BatchNorm net's running
+    statistics (in place); returns them by buffer name."""
+    stats = JaxLayout.batch_stats_of(model).from_jax(
+        tree, device=next(model.parameters()).device)
+    buffers = dict(model.named_buffers())
+    with torch.no_grad():
+        for k, v in stats.items():
+            buffers[k].copy_(v)
+    return stats
+
+
+def batch_stats_to_jax(model) -> dict:
+    """A BatchNorm net's running statistics as the JAX ``batch_stats``
+    tree."""
+    return to_jax_tree(JaxLayout.batch_stats_of(model),
+                       dict(model.named_buffers()))
+
+
 def layout_for(model) -> JaxLayout:
-    from ..models.convnet2d import ConvNet2D
     from ..models.convnet3d import ConvNet3D
     from ..models.hallucinator import Hallucinator
+    from ..models.layers import ImageModel
     from ..models.video_nets import VideoConvNet
 
     if isinstance(model, ConvNet3D):
         return JaxLayout.for_convnet3d(model)
-    if isinstance(model, ConvNet2D):
-        return JaxLayout.for_convnet2d(model)
+    if isinstance(model, ImageModel):
+        return JaxLayout.for_image_net(model)
     if isinstance(model, VideoConvNet):
         return JaxLayout.for_video_convnet(model)
     if isinstance(model, Hallucinator):

@@ -87,13 +87,68 @@ class GroupNorm(nn.GroupNorm):
                                        self.num_groups, self.eps)[0]
 
 
+# flax's BatchNorm epsilon
+BN_EPS = 1e-5
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over channels-first x (the statistics over every
+    axis but the channel). Train mode normalises with the batch statistics
+    and updates the running ones in place; eval mode normalises with the
+    running ones. The batch variance is flax's ``E[x^2] - E[x]^2`` clipped
+    at 0, biased (torch's ``BatchNorm2d`` keeps the unbiased one), and the
+    update is flax's ``ra = momentum ra + (1 - momentum) batch`` (torch's
+    ``momentum`` weighs the other side). ``weight`` and ``bias`` are flax's
+    ``scale`` and ``bias``; ``running_mean`` and ``running_var`` its
+    ``batch_stats`` ``mean`` and ``var``, buffers outside the flat
+    parameter vector."""
+
+    def __init__(self, channels: int, momentum: float, eps: float = BN_EPS,
+                 device=None):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.register_buffer("running_mean", torch.zeros(channels, device=device))
+        self.register_buffer("running_var", torch.ones(channels, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self):
+        """A fresh layer: scale 1, bias 0, running mean 0 and variance 1."""
+        for t, v in ((self.weight, 1.0), (self.bias, 0.0),
+                     (self.running_mean, 0.0), (self.running_var, 1.0)):
+            t.fill_(v)
+
+    def forward(self, x, train: bool = True):
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        if train:
+            dims = [0] + list(range(2, x.dim()))
+            mean = x.mean(dims)
+            var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(view)) * mul.view(view) + self.bias.view(view)
+
+
+def apply_norm(norm: Optional[nn.Module], x, train: bool):
+    """``norm(x)``, with the train flag for a BatchNorm; x for None."""
+    if norm is None:
+        return x
+    return norm(x, train) if isinstance(norm, BatchNorm) else norm(x)
+
+
 def norm_layer(net_norm: str, channels: int, device=None) -> Optional[nn.Module]:
     """The reference's norm names as torch modules (``layers.py:796-819``);
     None for 'none'. 'instancenorm' is GroupNorm(C groups) and 'groupnorm'
     GroupNorm(4) (networks.py:778-790); the JAX 'layernorm' normalises over
     (H, W, C) with one scale and bias per channel, which is GroupNorm(1).
-    Each keeps one weight (flax's ``scale``) and bias per channel. BatchNorm
-    is not ported (ROADMAP A.13)."""
+    Each keeps one weight (flax's ``scale``) and bias per channel.
+    'batchnorm' is flax's BatchNorm at momentum 0.9 (the DC nets')."""
     groups = {"instancenorm": channels, "groupnorm": 4, "layernorm": 1}
     if net_norm == "none":
         return None
@@ -101,8 +156,7 @@ def norm_layer(net_norm: str, channels: int, device=None) -> Optional[nn.Module]
         return GroupNorm(groups[net_norm], channels, eps=NORM_EPS,
                          device=device)
     if net_norm == "batchnorm":
-        raise NotImplementedError(
-            "net_norm='batchnorm' is not ported yet (ROADMAP A.13)")
+        return BatchNorm(channels, momentum=0.9, device=device)
     raise ValueError(f"unknown net_norm: {net_norm}")
 
 
@@ -177,3 +231,117 @@ def s2d2_conv_pool(x, weight, bias):
     ho, wo = y.shape[2:]
     m = phase_max(y.permute(0, 2, 3, 1).reshape(-1, 4 * o), f * ho * wo)
     return m.view(b, o, f, ho, wo) + bias.view(1, o, 1, 1, 1)
+
+
+class ImageModel(nn.Module):
+    """What the image nets share (the port of the JAX package's image zoo,
+    each a flax module over ``(B, H, W, C)``).
+
+    * ``image_input``: NHWC -> NCHW. A ``(B, 1, H, W, C)`` input (the raw
+      DM and MTT drivers' synthetic set on an image store,
+      ``dm.init_synthetic_raw``) is taken as its images where the JAX net
+      computes the same function on it (its leading axes are batch axes to
+      flax's convs and pools), and raises where it does not: the JAX
+      package's pairwise max-pool halves that frame axis to size 0, so a
+      net with a max-pool (``max_pools``) sees no features (ROADMAP C.18).
+    * ``heads``: the ``output`` modes 'logits', 'feat' and 'both' over the
+      features, flattened in the JAX (H, W, C) order by ``nhwc_flatten``.
+    * ``jax_tree``: the flax tree of the net as (path prefix, torch module
+      name, kind) triples, kind one of 'torchconv', 'torchdense' (the JAX
+      ``TorchConv``/``TorchDense``, whose leaves sit under ``Conv_0`` /
+      ``Dense_0``), 'conv', 'dense' (flax's own) and 'norm'
+      (``scale``/``bias``; a BatchNorm's ``mean``/``var`` go to its
+      ``batch_stats``). ``distill/params.py`` makes the layout of it.
+    * ``reset_parameters``: torch-default convs and linears from the
+      generator (the JAX ``TorchConv``/``TorchDense`` init), norms at scale
+      1 and bias 0 (and a BatchNorm's statistics at 0 and 1).
+    """
+
+    max_pools = False
+
+    def __init__(self):
+        super().__init__()
+        self.jax_tree = []
+        self._widest = {}
+
+    def image_input(self, x):
+        if x.dim() == 5:
+            if x.shape[1] != 1:
+                raise ValueError(f"{type(self).__name__} takes images; got "
+                                 f"clips of shape {tuple(x.shape)}")
+            if self.max_pools:
+                raise ValueError(
+                    f"{type(self).__name__} has a max-pool, which the JAX "
+                    "package runs over the singleton frame axis of a "
+                    "(B, 1, H, W, C) input, leaving no features: the raw DM "
+                    "and MTT drivers give an image store's synthetic set "
+                    "that axis, and the JAX package fails on it (ROADMAP "
+                    "C.18)")
+            x = x[:, 0]
+        return x.permute(0, 3, 1, 2)
+
+    def heads(self, feat, output: str):
+        if output == "feat":
+            return feat
+        logits = self.head(feat)
+        if output == "both":
+            return logits, feat
+        return logits
+
+    def clip_elements(self, frames: int, h: int, w: int) -> int:
+        """Elements of the widest activation ``frames`` (h, w) images make
+        (``net_groups`` and ``dm.real_chunk`` size their batches by it):
+        the largest input or output of a submodule in one eval-mode forward
+        of an (h, w) image, on the meta device (once a size: about 0.15 s
+        for ResNet18)."""
+        if (h, w) in self._widest:
+            return frames * self._widest[h, w]
+        first = next(m for m in self.modules()
+                     if isinstance(m, (nn.Conv2d, nn.Linear)))
+        channel = (first.in_channels if isinstance(first, nn.Conv2d)
+                   else first.in_features // (h * w))
+        widest = 0
+
+        def hook(_, args, out):
+            nonlocal widest
+            for t in (*args, out):
+                if isinstance(t, torch.Tensor):
+                    widest = max(widest, t.numel())
+
+        handles = [m.register_forward_hook(hook) for m in self.modules()]
+        try:
+            meta = {k: torch.empty_like(t, device="meta") for k, t in
+                    (*self.named_parameters(), *self.named_buffers())}
+            torch.func.functional_call(
+                self, meta, (torch.empty(1, h, w, channel, device="meta"),),
+                dict(train=False, output="feat"))
+        finally:
+            for handle in handles:
+                handle.remove()
+        self._widest[h, w] = widest
+        return frames * widest
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                init_conv_(m, generator)
+            elif isinstance(m, (nn.GroupNorm, BatchNorm, ChannelLayerNorm)):
+                m.reset_parameters()
+
+
+def nhwc_flatten(x):
+    """NCHW features flattened in the JAX (H, W, C) order."""
+    return x.permute(0, 2, 3, 1).flatten(1)
+
+
+class ChannelLayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm()`` over NCHW x: each pixel normalised over its
+    channels (flax's default reduction, the last axis of NHWC), epsilon
+    1e-6."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__(channels, eps=NORM_EPS, device=device)
+
+    def forward(self, x):
+        return super().forward(x.movedim(1, -1)).movedim(-1, 1)

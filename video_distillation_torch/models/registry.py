@@ -1,13 +1,21 @@
 """Model factory (port of ``video_distillation_tpu/models/registry.py``).
 
-Ported: ConvNet3D, built as the reference factory builds it (utils.py:
-608-609) with net_norm='none' and net_pooling='maxpooling'; the video
-models ``VideoConvNet{Mean,MLP,LSTM,RNN,GRU}`` (per-frame ConvNet with a
-temporal head); and the 2-D ConvNet with its depth, width, activation,
-norm and pooling variants (``ConvNetD*``, ``ConvNetW*``,
-``ConvNetAS/AR/AL/ASwish``, ``ConvNetNN/IN/GN/LN``, ``ConvNetNP/MP/AP``).
-The image models (BatchNorm variants, the classic nets, FRePo's) raise:
-they come with the image datasets (ROADMAP A.15b).
+Every name of the JAX ``create_model``: ConvNet3D, built as the reference
+factory builds it (utils.py:608-609) with net_norm='none' and
+net_pooling='maxpooling'; the video models
+``VideoConvNet{Mean,MLP,LSTM,RNN,GRU}`` (per-frame ConvNet with a temporal
+head); the 2-D ConvNet with its depth, width, activation, norm and pooling
+variants (``ConvNetD*``, ``ConvNetW*``, ``ConvNetAS/AR/AL/ASwish``,
+``ConvNetNN/IN/GN/LN/BN``, ``ConvNetASwishBN``, ``ConvNetNP/MP/AP``,
+``DC_ConvNet``/``dcconv``); the classic nets (MLP, LeNet, AlexNet(BN),
+VGG11/13/16/19(BN), ResNet18(BN)(_AP)); FRePo's ``KIP_ConvNet``/``kipconv``
+and ``Conv``/``conv``.
+
+The BatchNorm nets come with their running statistics (module buffers).
+No path of the JAX package runs them: every ``apply`` there hands flax the
+parameters alone, and flax raises for the missing ``batch_stats`` (ROADMAP
+C.17). ``path_model`` is ``create_model`` for the paths (evaluation, DM,
+MTT, DC, coresets, FRePo, experts), and raises for them likewise.
 """
 
 from __future__ import annotations
@@ -16,8 +24,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from .classic import CFG_VGG, MLP, VGG, AlexNet, LeNet, ResNet
 from .convnet2d import ConvNet2D
 from .convnet3d import ConvNet3D
+from .frepo_nets import FRePoConv, KIPConvNet
+from .layers import BatchNorm
 from .video_nets import VideoConvNet
 
 DEFAULT_WIDTH, DEFAULT_DEPTH = 128, 3
@@ -27,7 +38,9 @@ DEFAULT_ACT, DEFAULT_NORM, DEFAULT_POOLING = "relu", "instancenorm", "avgpooling
 _CONVNET_VARIANTS = {
     "": {}, "AS": {"net_act": "sigmoid"}, "AR": {"net_act": "relu"},
     "AL": {"net_act": "leakyrelu"}, "ASwish": {"net_act": "swish"},
+    "ASwishBN": {"net_act": "swish", "net_norm": "batchnorm"},
     "NN": {"net_norm": "none"}, "LN": {"net_norm": "layernorm"},
+    "BN": {"net_norm": "batchnorm"},
     "IN": {"net_norm": "instancenorm"}, "GN": {"net_norm": "groupnorm"},
     "NP": {"net_pooling": "none"}, "MP": {"net_pooling": "maxpooling"},
     "AP": {"net_pooling": "avgpooling"}}
@@ -66,6 +79,9 @@ def create_model(model: str, channel: int, num_classes: int,
                             net_pooling=DEFAULT_POOLING, im_size=tuple(im_size),
                             frames=frames, head=head, generator=generator,
                             device=device)
+    if model in ("DC_ConvNet", "dcconv"):
+        # DC_ConvNet == ConvNet2D with identity norm / avg pool
+        model = "ConvNetNN"
     kw = _convnet_kwargs(model)
     if kw is not None:
         base = dict(channel=channel, num_classes=num_classes,
@@ -73,10 +89,52 @@ def create_model(model: str, channel: int, num_classes: int,
                     net_act=DEFAULT_ACT, net_norm=DEFAULT_NORM,
                     net_pooling=DEFAULT_POOLING, im_size=tuple(im_size))
         return ConvNet2D(**{**base, **kw}, generator=generator, device=device)
-    raise NotImplementedError(
-        f"model {model!r} is not ported yet: the image models (the "
-        "BatchNorm ConvNets, MLP, LeNet, AlexNet, VGG, ResNet, FRePo's "
-        "nets) come with the image datasets (ROADMAP A.15b)")
+    common = dict(channel=channel, num_classes=num_classes,
+                  im_size=tuple(im_size), generator=generator, device=device)
+    if model == "MLP":
+        return MLP(**common)
+    if model == "LeNet":
+        return LeNet(**common)
+    if model in ("AlexNet", "AlexNetBN"):
+        return AlexNet(use_bn=model.endswith("BN"), **common)
+    if model.removesuffix("BN") in CFG_VGG:
+        return VGG(model.removesuffix("BN"),
+                   norm="batchnorm" if model.endswith("BN") else "instancenorm",
+                   **common)
+    if model in ("ResNet18", "ResNet18BN", "ResNet18BN_AP", "ResNet18_AP"):
+        return ResNet(norm="batchnorm" if "BN" in model else "instancenorm",
+                      avg_pool_down=model.endswith("_AP"), **common)
+    # FRePo's evaluation-pool nets (FRePo/lib/models/utils.py arch names)
+    if model in ("KIP_ConvNet", "kipconv"):
+        return KIPConvNet(width=DEFAULT_WIDTH, depth=DEFAULT_DEPTH, **common)
+    if model in ("Conv", "conv"):
+        return FRePoConv(width=DEFAULT_WIDTH, depth=DEFAULT_DEPTH, **common)
+    raise ValueError(f"unknown model: {model}")
+
+
+def has_batch_stats(model) -> bool:
+    """Whether a torch module holds BatchNorm running statistics."""
+    return any(isinstance(m, BatchNorm) for m in model.modules())
+
+
+def path_model(model: str, channel: int, num_classes: int,
+               im_size: Tuple[int, int] = (32, 32), frames: int = 16, *,
+               generator: Optional[torch.Generator] = None, device=None):
+    """``create_model`` for the distillation and evaluation paths, which
+    carry a net as its flat parameters alone, as the JAX package's do
+    (``{"params": p}`` in every ``apply``). A BatchNorm net raises there:
+    its ``batch_stats`` are missing, and flax raises
+    ``ScopeCollectionNotFound`` for them in train and eval mode alike
+    (ROADMAP C.17)."""
+    net = create_model(model, channel, num_classes, im_size, frames,
+                       generator=generator, device=device)
+    if has_batch_stats(net):
+        raise ValueError(
+            f"{model} is a BatchNorm net: no path of the JAX package runs "
+            "it (each applies the parameters without the batch_stats "
+            "collection, and flax raises ScopeCollectionNotFound), and the "
+            "port fails with it (ROADMAP C.17)")
+    return net
 
 
 def is_video_model(model: str) -> bool:
@@ -85,8 +143,9 @@ def is_video_model(model: str) -> bool:
 
 
 def get_eval_pool(eval_mode: str, model: str, model_eval: Optional[str] = None):
-    """Parity with utils.py:973-996 (a copy of the JAX package's). Pools
-    that name models not ported yet raise from ``create_model``."""
+    """Parity with utils.py:973-996 (a copy of the JAX package's). The
+    pools 'B' and 'N' name BatchNorm nets, which every path refuses
+    (``path_model``, ROADMAP C.17)."""
     model_eval = model_eval or model
     if eval_mode == "M":
         return ["MLP", "ConvNet", "LeNet", "AlexNet", "VGG11", "ResNet18"]
