@@ -55,6 +55,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              the A/B of the first stage, through ``S2DMTTStep`` alone: 1
              warm-up + 3 timed bf16 steps with the fused stage and as many
              with ``fuse_first_stage=False``, steps/s and peak memory each.
+4b. remat  — ``--second_order remat`` against 'full' through the S2D-MTT
+             driver at the slice's width (bf16, fp32 head, 50 clips an inner
+             step, frozen static), 1 warm-up + 3 timed steps each from one
+             seed (the same segments, plans, slot draws and dropout masks):
+             each step's loss within REMAT_BF16_LOSS relative and its outer
+             gradients within REMAT_BF16_GRAD relative norm of full's, each
+             ``hal_conv`` kernel once a step, the first-stage kernels
+             ``per_outer_step_remat`` times a step (``per_outer_step`` for
+             full), remat's peak memory below full's; steps/s and peaks.
+             Then one fp32 raw MTT step (3 classes, 64x64x8, syn_steps=2)
+             remat against full within 1e-5, or, where a max flipped
+             between them, each against an fp64 CPU step under C.13's rule.
 5. check_first_stage — the five first-stage kernels (``ops.s2d2_move``:
              pack, unpack; ``ops.phase_trio``: argmax, select, scatter)
              against their plain versions: fp32 and bf16 at small shapes
@@ -218,6 +230,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              on the card (round trip within 1e-3). No kernel of the port
              launches in the phase.
 
+14. augment — DSA ('color_crop_cutout_flip_scale_rotate', modes 'M' and
+             'S', siamese and not) on a DM real batch's frames (64 clips x
+             16 frames of 112x112x3, fp32), ``get_aug_by_name`` on a CIFAR10
+             batch of 256 until each strategy was picked, and ``warp`` on
+             256 frames of 112x112: the card against the CPU from the same
+             draws, forward and gradient into x within 1e-5 (relative norm;
+             for DSA, or within 3x of the CPU's distance from an fp64 CPU
+             run), ms forward and forward + backward; one DC augment batch
+             on the host (ms); one DSA call traced by ``utils.profiling``.
+             It launches none of the port's kernels.
+
 Then the ``kernels`` line (launch counts: the three ``hal_conv`` and the
 five first-stage kernels from the bf16 slice run, ``hal_fused`` from the
 pipeline run's batched evaluations; the other paths' counts are in their
@@ -229,6 +252,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -284,8 +308,14 @@ from video_distillation_torch.ops import hal_fused as hf  # noqa: E402
 from video_distillation_torch.ops import phase_trio as pt  # noqa: E402
 from video_distillation_torch.ops import s2d2_move as sm  # noqa: E402
 from video_distillation_torch.ops import zca  # noqa: E402
+from video_distillation_torch.ops.augment import (  # noqa: E402
+    ParamDiffAug, dc_augment, get_daparam, make_diff_augment, on_device)
+from video_distillation_torch.ops.augment_extra import \
+    get_aug_by_name  # noqa: E402
+from video_distillation_torch.ops.augmax_ops import warp  # noqa: E402
 from video_distillation_torch.utils.device import (  # noqa: E402
     step_generator, use_exact_fp32)
+from video_distillation_torch.utils import profiling  # noqa: E402
 from video_distillation_torch.utils.logging import MetricLogger  # noqa: E402
 
 SOURCE = "video_distillation_torch/csrc/hal_conv.cu"
@@ -432,6 +462,18 @@ def per_outer_step(syn_steps):
     scatter and unpacks every pack's cotangent."""
     return {"phase_argmax": syn_steps, "phase_select": syn_steps,
             "phase_scatter": 2 * syn_steps, "s2d2_pack": syn_steps,
+            "s2d2_unpack": syn_steps}
+
+
+def per_outer_step_remat(syn_steps):
+    """First-stage launches of one S2D-MTT outer step under
+    ``second_order='remat'``: each inner step's forward and first-order
+    backward run in the forward pass and again in the outer backward's
+    recompute (pack and phase max twice, scatter twice), and the
+    recompute's backward scatters through the forward, selects through the
+    inner scatter and unpacks once."""
+    return {"phase_argmax": 2 * syn_steps, "phase_select": syn_steps,
+            "phase_scatter": 3 * syn_steps, "s2d2_pack": 2 * syn_steps,
             "s2d2_unpack": syn_steps}
 
 
@@ -954,7 +996,9 @@ def _finite(t):
     return bool(torch.isfinite(t).all())
 
 
-def phase_slice(tmp):
+def slice_buffer(tmp):
+    """(θ_0, θ_1): two fresh slice nets, written to ``tmp`` as one expert of
+    two snapshots."""
     nc, f, im = SLICE["num_classes"], SLICE["frames"], SLICE["im"]
     _, t0 = flat_param_template("ConvNet3D", 3, nc, (im, im), f,
                                 torch.Generator(device="cuda").manual_seed(0),
@@ -964,17 +1008,35 @@ def phase_slice(tmp):
                                 "cuda")
     TrajectoryBuffer(np.stack([t0.cpu().numpy(), t1.cpu().numpy()])[None]).save(
         os.path.join(tmp, "replay_buffer_0.npz"))
+    return t0, t1
 
-    def config(dtype, iterations):
-        cfg = get_preset("s2d_MTT_ms")
-        cfg.s2d = True
-        cfg.dataset = f"synthetic_c{nc}_n1_t1_f{f}_im{im}"
-        cfg.buffer_path = cfg.save_path = tmp
-        cfg.Iteration, cfg.max_start_epoch = iterations, 1
-        cfg.syn_steps, cfg.compute_dtype, cfg.device = \
-            SLICE["syn_steps"], dtype, "cuda"
-        return cfg
 
+def slice_config(tmp, dtype, iterations):
+    """The ``s2d_MTT_ms`` preset at the slice's shape, from ``tmp``'s
+    buffer, on the card."""
+    nc, f, im = SLICE["num_classes"], SLICE["frames"], SLICE["im"]
+    cfg = get_preset("s2d_MTT_ms")
+    cfg.s2d = True
+    cfg.dataset = f"synthetic_c{nc}_n1_t1_f{f}_im{im}"
+    cfg.buffer_path = cfg.save_path = tmp
+    cfg.Iteration, cfg.max_start_epoch = iterations, 1
+    cfg.syn_steps, cfg.compute_dtype, cfg.device = \
+        SLICE["syn_steps"], dtype, "cuda"
+    return cfg
+
+
+def s2d_grads(out):
+    """An S2D-MTT step's outer gradients by name."""
+    grads = out[7]
+    named = {"dynamic": grads["dynamic"], "syn_lr": grads["syn_lr"]}
+    for i, p in enumerate(grads["hals"]):
+        named.update({f"hal{i}.{k}": v for k, v in p.items()})
+    return named
+
+
+def phase_slice(tmp):
+    t0, t1 = slice_buffer(tmp)
+    config = functools.partial(slice_config, tmp)
     cfg = config("bfloat16", 3)
     data = load_data(cfg)
     logger = MetricLogger(quiet=True)
@@ -983,12 +1045,9 @@ def phase_slice(tmp):
     def hook(it, out):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        loss, grads = out[4], out[7]
+        loss = out[4]
         losses.append(float(loss))
-        named = {"loss": loss, "dynamic": grads["dynamic"],
-                 "syn_lr": grads["syn_lr"]}
-        for i, p in enumerate(grads["hals"]):
-            named.update({f"hal{i}.{k}": v for k, v in p.items()})
+        named = {"loss": loss, **s2d_grads(out)}
         bad = [k for k, v in named.items() if not _finite(v)]
         if bad:
             raise AssertionError(f"step {it}: non-finite {bad}")
@@ -1074,6 +1133,273 @@ def first_stage_ab(t0, t1):
     emit({"phase": "slice_first_stage_ab", "compute_dtype": "bfloat16",
           **res, "fused_over_plain_steps_per_sec":
               res["fused"]["steps_per_sec"] / res["plain"]["steps_per_sec"]})
+
+
+# remat against 'full' in bf16 on the same draws: each step's grand loss
+# within REMAT_BF16_LOSS relative, each outer gradient within
+# REMAT_BF16_GRAD relative norm. The recompute runs the forward's kernels
+# on the forward's inputs, so the two agree bit for bit where cuDNN picks
+# the same algorithms (H100 80GB HBM3, 700 W: 0.0 in all four steps); the
+# room is for a recompute that picks another algorithm, whose rounding bf16
+# carries through ten inner steps
+REMAT_BF16_LOSS = 1e-4
+REMAT_BF16_GRAD = 1e-2
+
+
+def phase_remat(tmp):
+    """``--second_order remat`` against 'full' through the S2D-MTT driver at
+    the slice's width (bf16 with the fp32 head, 50 clips an inner step, the
+    static frozen): 1 warm-up + 3 timed outer steps each, from the same
+    seed, so the same expert segments, plans, slot draws and dropout masks.
+    Each step runs with the counts checked after it: each ``hal_conv``
+    kernel once, the first-stage kernels ``per_outer_step_remat`` (remat)
+    or ``per_outer_step`` (full) times. remat's peak memory must be below
+    full's, and its losses and gradients within REMAT_BF16_* of full's.
+    Then one fp32 raw MTT step with remat against full
+    (``remat_raw_mtt_fp32``)."""
+    slice_buffer(tmp)
+    syn = SLICE["syn_steps"]
+    data = load_data(slice_config(tmp, "bfloat16", 3))
+    res, seen = {}, {}
+    for mode, per_step in (("remat", per_outer_step_remat(syn)),
+                           ("full", per_outer_step(syn))):
+        cfg = slice_config(tmp, "bfloat16", 3)
+        cfg.second_order = mode
+        marks, steps = [], []
+
+        def hook(it, out):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            named = {"loss": out[4], **s2d_grads(out)}
+            bad = [k for k, v in named.items() if not _finite(v)]
+            if bad:
+                raise AssertionError(f"remat {mode} step {it}: non-finite {bad}")
+            steps.append({k: v.detach().float().cpu() for k, v in named.items()})
+            _check_hal_launches(f"remat {mode} step {it}",
+                                dict.fromkeys(hc.LAUNCHES, it + 1))
+            check_first_stage_counts(f"remat {mode} step {it}", {
+                k: n * (it + 1) for k, n in per_step.items()})
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        hc.reset_launches()
+        reset_first_stage()
+        run(cfg, data, MetricLogger(quiet=True), step_hook=hook)
+        seen[mode] = steps
+        res[mode] = {"steps_per_sec": (len(marks) - 1) / (marks[-1] - marks[0]),
+                     "step_seconds": np.diff(marks).tolist(),
+                     "grand_loss": [float(st["loss"]) for st in steps],
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "launches_per_outer_step": per_step}
+    dist = [{k: (abs(float(r[k]) / float(f[k]) - 1) if k == "loss"
+                 else _rel(r[k], f[k])) for k in r}
+            for r, f in zip(seen["remat"], seen["full"])]
+    emit({"phase": "remat", "compute_dtype": "bfloat16", **res,
+          "remat_vs_full": dist, "tolerance": {"loss": REMAT_BF16_LOSS,
+                                               "grads": REMAT_BF16_GRAD}})
+    for i, d in enumerate(dist):
+        for k, v in d.items():
+            tol = REMAT_BF16_LOSS if k == "loss" else REMAT_BF16_GRAD
+            assert v <= tol, f"remat step {i}: {k} {v} from full over {tol}"
+    assert (res["remat"]["max_memory_allocated_gb"]
+            < res["full"]["max_memory_allocated_gb"]), res
+    remat_raw_mtt_fp32()
+
+
+def remat_raw_mtt_fp32():
+    """One raw MTT step (syn_steps=2, 3 classes, 64x64x8) fp32 on the card
+    with remat and with full, and fp64 full on the CPU, from the same
+    inputs and dropout masks (raw MTT draw 0 of the baselines' check):
+    remat within FP64_NO_TIE of full (loss and outer gradients, relative),
+    or, where their maxes picked other winners, each within ROADMAP C.13's
+    bound of fp64."""
+    c = BASELINES_SMALL
+    nc, f, im = c["num_classes"], c["frames"], c["im_size"][0]
+    steps = 2
+    syn, gen = mtt_draw(0)
+    _, t0 = flat_param_template("ConvNet3D", 3, nc, (im, im), f,
+                                torch.Generator().manual_seed(4), "cpu")
+    _, t1 = flat_param_template("ConvNet3D", 3, nc, (im, im), f,
+                                torch.Generator().manual_seed(5), "cpu")
+    plan = torch.as_tensor(make_batch_plan(np.random.default_rng(6), nc, nc,
+                                           steps))
+    masks = torch.rand(steps, nc, 1, 1, 1, 128, generator=gen) < 0.5
+    runs, logs = {}, {}
+    for dev, dtype, mode in (("cuda", "float32", "full"),
+                             ("cuda", "float32", "remat"),
+                             ("cpu", "float64", "full")):
+        dt = getattr(torch, dtype)
+        with routing_log(logs.setdefault(mode + dtype, [])):
+            step = MTTStep("ConvNet3D", 3, nc, (im, im), f, steps, 100.0,
+                           1e-5, True, dtype, dev, second_order=mode)
+            runs[mode + dtype] = step(
+                None, syn.to(dev, dt), torch.arange(nc, device=dev),
+                torch.tensor(0.01, device=dev),
+                torch.zeros_like(syn, device=dev, dtype=dt),
+                torch.zeros((), device=dev), t0.to(dev, dt), t1.to(dev, dt),
+                plan.to(dev), keep_masks=masks.to(dev))
+
+    def dist(a, b):
+        return {"loss": abs(float(a[4]) / float(b[4]) - 1),
+                "grad_images": _rel(a[7]["images"], b[7]["images"]),
+                "grad_syn_lr": _rel(a[7]["syn_lr"], b[7]["syn_lr"])}
+
+    # remat's log holds its forward pass, then each step's recompute
+    n = len(logs["fullfloat64"])
+    fl = {"remat_vs_full": flips(logs["rematfloat32"][:n], logs["fullfloat32"]),
+          "remat_vs_fp64": flips(logs["rematfloat32"][:n], logs["fullfloat64"]),
+          "full_vs_fp64": flips(logs["fullfloat32"], logs["fullfloat64"])}
+    out = {"remat_vs_full": dist(runs["rematfloat32"], runs["fullfloat32"]),
+           "remat_vs_fp64": dist(runs["rematfloat32"], runs["fullfloat64"]),
+           "full_vs_fp64": dist(runs["fullfloat32"], runs["fullfloat64"]),
+           "flips": fl}
+    emit({"phase": "remat_raw_mtt_fp32", **out})
+    if fl["remat_vs_full"] == 0:
+        for k, v in out["remat_vs_full"].items():
+            assert v <= FP64_NO_TIE, f"remat fp32: {k} {v} from full"
+    else:
+        for name in ("remat_vs_fp64", "full_vs_fp64"):
+            cap = MTT_FP64_CAP if fl[name] else FP64_NO_TIE
+            for k, v in out[name].items():
+                assert v <= cap, f"remat fp32 {name}: {k} {v} over {cap}"
+
+
+# augmentation at the sizes its users run: DSA on a DM real batch of the
+# slice (64 clips x 16 frames of 112x112), augmax on a CIFAR10 batch of 256,
+# warp at 112x112 on 256 frames, one DC augment batch on the host
+AUGMENT = dict(clips=64, frames=16, im=112, cifar_batch=256, cifar_res=32,
+               warp_frames=256, seed=0)
+DSA_STRATEGY = "color_crop_cutout_flip_scale_rotate"
+AUGMAX_STRATEGY = "color_crop_translate_cutout_flip_rotate"
+
+
+def _double(draws):
+    if isinstance(draws, (tuple, list)):
+        return type(draws)(_double(d) for d in draws)
+    if isinstance(draws, torch.Tensor) and draws.is_floating_point():
+        return draws.double()
+    return draws
+
+
+def aug_card_vs_cpu(name, apply, x_cpu, draws, fp64=False):
+    """``apply(x, draws)`` on the card and on the CPU from the same x and
+    draws: the output and the gradient into x from one cotangent, each
+    within 1e-5 of the CPU's (relative norm; the largest elementwise error
+    beside it). With ``fp64`` also an fp64 CPU run, and each device's
+    distance from it: DSA's chained resampling on noise-like frames puts
+    fp32's own gradient 9e-6 from fp64 (on the CPU), so there a card
+    further than 1e-5 from the CPU passes if it is within 3x of the CPU's
+    distance from fp64 (the rule of the ``parity`` phase). The card's ms
+    forward and forward + backward."""
+    res = {}
+    ct = None
+    runs = [("cpu", torch.float32), ("cuda", torch.float32)]
+    for dev, dt in runs + ([("cpu", torch.float64)] if fp64 else []):
+        x = x_cpu.detach().to(dev, dt).requires_grad_(True)
+        d = on_device(x, draws)
+        y = apply(x, _double(d) if dt == torch.float64 else d)
+        if ct is None:
+            ct = torch.randn(y.shape, generator=torch.Generator().manual_seed(1))
+        (g,) = torch.autograd.grad(y, x, ct.to(dev, dt))
+        res[dev, dt] = (y.detach().cpu(), g.cpu())
+    card, cpu = res["cuda", torch.float32], res["cpu", torch.float32]
+    row = {"name": name}
+    for i, what in enumerate(("out", "grad")):
+        row[what] = {"rel_norm_err": _rel(card[i], cpu[i]),
+                     "max_abs_err": max_err(card[i], cpu[i]),
+                     "max_abs": float(cpu[i].abs().max())}
+        if fp64:
+            ref = res["cpu", torch.float64][i]
+            row[what].update(card_vs_fp64=_rel(card[i], ref),
+                             cpu_vs_fp64=_rel(cpu[i], ref))
+        r = row[what]
+        if not (r["rel_norm_err"] <= 1e-5 or (
+                fp64 and r["card_vs_fp64"] <= 3 * r["cpu_vs_fp64"])):
+            raise AssertionError(f"augment {name} {what}: {r}")
+    x = x_cpu.cuda().requires_grad_(True)
+    d, ctc = on_device(x, draws), ct.cuda()
+    with torch.no_grad():
+        row["ms"] = cuda_ms(lambda: apply(x, d), 3)
+    row["fwd_bwd_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(apply(x, d), x, ctc), 3)
+    return row
+
+
+def phase_augment(tmp):
+    """DSA in modes 'M' and 'S', siamese and not, on a DM real batch's
+    frames; ``get_aug_by_name`` (augmax) on a CIFAR10 batch, until each of
+    its strategies was picked; ``warp`` at 112x112; each on the card against
+    the CPU from the same draws (made on the CPU), forward and backward
+    into x, with the card's times. One DC augment batch on the host. One
+    DSA call under ``utils.profiling.trace``: its Chrome trace must hold
+    the ``annotate`` span and kernels on the card. None of the port's
+    kernels launches."""
+    a = AUGMENT
+    reset_all_launches()
+    data = make_synthetic_video_data(**synthetic_kwargs_from_name(
+        f"synthetic_c4_n{a['clips'] // 4}_t1_f{a['frames']}_im{a['im']}"))
+    clips = torch.from_numpy(data.train.clips[:a["clips"]])
+    frames = data.train.normalize(clips).reshape(-1, a["im"], a["im"], 3)
+    rows = []
+    for mode in ("M", "S"):
+        for siamese in (False, True):
+            aug = make_diff_augment(DSA_STRATEGY, ParamDiffAug(aug_mode=mode),
+                                    siamese)
+            gen = torch.Generator().manual_seed(a["seed"] + len(rows))
+            draws = aug.draw(gen, frames)
+            picked = ("all" if draws[0] is None
+                      else DSA_STRATEGY.split("_")[draws[0]])
+            rows.append({**aug_card_vs_cpu(f"dsa_{mode}", aug.apply, frames,
+                                           draws, fp64=True),
+                         "siamese": siamese, "strategy": picked})
+    gen = torch.Generator().manual_seed(a["seed"])
+    cifar = torch.randn(a["cifar_batch"], a["cifar_res"], a["cifar_res"], 3,
+                        generator=gen)
+    aug = get_aug_by_name(AUGMAX_STRATEGY, res=a["cifar_res"])
+    names = AUGMAX_STRATEGY.split("_")
+    picked = set()
+    for seed in range(200):
+        draws = aug.draw(torch.Generator().manual_seed(seed), cifar)
+        if draws[0] in picked:
+            continue
+        picked.add(draws[0])
+        rows.append(aug_card_vs_cpu(f"augmax_{names[draws[0]]}", aug.apply,
+                                    cifar, draws))
+        if len(picked) == len(names):
+            break
+    assert len(picked) == len(names), picked
+    w = warp()
+    wx = frames[:a["warp_frames"]]
+    rows.append(aug_card_vs_cpu("warp", w.apply, wx,
+                                w.draw(torch.Generator().manual_seed(0), wx)))
+    host = cifar.numpy()
+    param = get_daparam("MNIST", "ConvNet", "ConvNet", 1)
+    t0 = time.perf_counter()
+    out = dc_augment(host, param, np.random.default_rng(a["seed"]))
+    dc_ms = (time.perf_counter() - t0) * 1e3
+    assert out.shape == host.shape and np.isfinite(out).all()
+    assert not np.array_equal(out, host)
+    log_dir = os.path.join(tmp, "augment_trace")
+    x = frames.cuda()
+    with profiling.trace(log_dir):
+        with profiling.annotate("dsa_M"):
+            make_diff_augment(DSA_STRATEGY, ParamDiffAug(aug_mode="M"))(
+                torch.Generator(device="cuda").manual_seed(0), x)
+        torch.cuda.synchronize()
+    with open(os.path.join(log_dir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    traced = {"spans": sum(e.get("name") == "dsa_M" for e in events),
+              "device_kernels": sum(e.get("cat") == "kernel" for e in events)}
+    # the span is the hook's own; device kernels need CUPTI on the machine
+    assert traced["spans"], traced
+    launches = all_launches()
+    assert not launches, f"augment: kernels launched {launches}"
+    emit({"phase": "augment", "dsa_frames": list(frames.shape),
+          "dsa_mb": frames.numel() * 4 / 1e6, "rows": rows,
+          "dc_augment": {"batch": list(host.shape),
+                         "strategy": param["strategy"], "ms": dc_ms},
+          "trace": traced, "ok": True})
 
 
 def _movers(shape, dtype, seed):
@@ -2937,6 +3263,7 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = phase_slice(tmp)
+        phase_remat(tmp)
         rows.update(phase_check_first_stage())
         rows["hal_fused"] = phase_check_fused()
         launches["hal_fused"], pipe = phase_pipeline(tmp)
@@ -2948,6 +3275,7 @@ def main():
         phase_frepo(data_path, tmp)
         phase_zoo(data_path, tmp)
         phase_images(tmp)
+        phase_augment(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, row in rows.items():

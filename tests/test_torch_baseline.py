@@ -17,8 +17,8 @@ and its baseline drivers at a toy size.
   DM and MTT and ``distill_s2d --preset s2d_DM_ms`` write their artifacts,
   and a run resumed from a checkpoint ends bit-equal to an uninterrupted
   one; ``distill_coreset`` picks clips of each class and logs finite
-  accuracies; the paths not ported (``second_order='remat'``,
-  ``shard_store``, other methods) raise.
+  accuracies; the paths not ported (``shard_store``, other methods)
+  raise.
 """
 
 import os
@@ -276,7 +276,6 @@ def test_coreset_driver(method):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--preset", "MTT", "--second_order", "remat"], "remat"),
     (["--preset", "DM", "--shard_store", "true"], "A.16"),
     (["--method", "FRePo"], "FRePo"),
 ])

@@ -14,6 +14,9 @@ The second order comes from ``torch.autograd.grad(..., create_graph=True)``
 on each inner step, the reference's own method: every inner step's graph
 stays in memory until the outer backward (the JAX package's ``'full'``
 mode), which is mathematically what its ``'rof'`` custom VJP computes.
+``second_order='remat'`` (the JAX package's ``jax.checkpoint`` on the inner
+step) keeps only each step's inputs and recomputes the step, with
+``create_graph``, in the outer backward (``_RematStep``).
 
 θ is the JAX package's flat fp32 vector (``distill/params.py``), so both
 packages read the same ``replay_buffer_{n}.npz``. Each inner step casts θ
@@ -44,6 +47,9 @@ from .s2d import (S2DConfig, distill_slots, grad_leaves, hallucinate,
 # float64 is for references only (chip_smoke.py's parity phase)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float64": torch.float64}
+# 'rof' and 'full' both keep every inner step's graph (the same gradient);
+# 'remat' recomputes each step in the outer backward
+SECOND_ORDER_MODES = ("rof", "full", "remat")
 
 
 def make_batch_plan(rng: np.random.Generator, n: int, batch_syn: int,
@@ -79,14 +85,54 @@ def masked_ce(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
     return (pick * w).sum() / w.sum().clamp_min(1.0)
 
 
+class _RematStep(torch.autograd.Function):
+    """One inner step θ_s -> θ_s - lr·∇ce(θ_s, x_s), rematerialised: the
+    forward takes the first-order gradient without ``create_graph`` and
+    keeps only the step's inputs; the backward recomputes the step with
+    ``create_graph`` and returns its VJP into θ_s, x_s and lr. Each inner
+    forward so runs twice, as under ``jax.checkpoint``
+    (``torch.utils.checkpoint`` around a ``create_graph`` step runs it three
+    times). The dropout keep-mask comes in drawn: a draw inside the region
+    would give the recompute another mask."""
+
+    @staticmethod
+    def forward(ctx, theta, x, lr, y, w, keep_mask, core):
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(core.ce(th, x.detach(), y, w,
+                                               keep_mask), th)
+        ctx.core = core
+        ctx.save_for_backward(theta, x, lr, y, w, keep_mask)
+        return theta - lr * g
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, v):
+        theta, x, lr, y, w, keep_mask = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_(True)
+            xx = x.detach().requires_grad_(need[1])
+            lr_ = lr.detach().requires_grad_(need[2])
+            (g,) = torch.autograd.grad(ctx.core.ce(th, xx, y, w, keep_mask),
+                                       th, create_graph=True)
+            wrt = [t for t, n in zip((th, xx, lr_), need) if n]
+            grads = iter(torch.autograd.grad(th - lr_ * g, wrt, v))
+        return tuple(next(grads) if n else None for n in need) + (None,) * 4
+
+
 class MTTCore:
     """The inner unroll: (composed batches, θ_start, syn_lr) -> grand loss
     (``_build_mtt_core``, mtt.py:127-289), with gradients to second order
-    through ``create_graph``."""
+    through ``create_graph`` (``'rof'``, ``'full'``) or per-step
+    rematerialisation (``'remat'``)."""
 
     def __init__(self, model_name: str, channel: int, num_classes: int,
                  im_size: Tuple[int, int], frames: int, syn_steps: int,
-                 compute_dtype: str, device):
+                 compute_dtype: str, device, second_order: str = "rof"):
+        if second_order not in SECOND_ORDER_MODES:
+            raise ValueError(f"unknown second_order mode: {second_order}")
+        self.second_order = second_order
         self.model = path_model(model_name, channel, num_classes,
                                 tuple(im_size), frames, device=device)
         self.model.requires_grad_(False)
@@ -106,14 +152,36 @@ class MTTCore:
                  fp32_stages=self.fp32_stages))
         return masked_ce(logits, y, w)
 
+    def draw_keep_mask(self, generator, x):
+        """One inner step's dropout keep-mask for the batch ``x`` in the JAX
+        layout, from the same generator call the model's own draw makes (so
+        a drawn mask equals the one the forward would draw); None for a
+        model without dropout."""
+        rate = getattr(self.model, "dropout_rate", 0.0)
+        if rate <= 0:
+            return None
+        t, h, w, c = self.model.keep_mask_shape(*x.shape[1:4])
+        keep = torch.rand((x.shape[0], c, t, h, w), generator=generator,
+                          device=x.device) < 1.0 - rate
+        return keep.permute(0, 2, 3, 4, 1)
+
     def unroll(self, theta_start, theta_target, syn_lr, batches_x, batches_y,
                batches_w, keep_masks=None, generator=None):
         """batches_x: (S, B, F, H, W, C), already in normalised space.
         ``keep_masks``: optional per-step dropout keep-masks (S, ...) in
-        the JAX layout. Returns (grand_loss, param_loss, param_dist)."""
-        theta = theta_start.detach().requires_grad_(True)
+        the JAX layout; under 'remat' a step without one draws it from
+        ``generator`` before its region. Returns (grand_loss, param_loss,
+        param_dist)."""
+        remat = self.second_order == "remat"
+        theta = theta_start.detach().requires_grad_(not remat)
         for s in range(self.syn_steps):
             km = None if keep_masks is None else keep_masks[s]
+            if remat:
+                if km is None:
+                    km = self.draw_keep_mask(generator, batches_x[s])
+                theta = _RematStep.apply(theta, batches_x[s], syn_lr,
+                                         batches_y[s], batches_w[s], km, self)
+                continue
             ce = self.ce(theta, batches_x[s], batches_y[s], batches_w[s], km,
                          generator)
             (g,) = torch.autograd.grad(ce, theta, create_graph=True)
@@ -137,9 +205,11 @@ class MTTStep:
 
     def __init__(self, model_name: str, channel: int, num_classes: int,
                  im_size, frames: int, syn_steps: int, lr_img: float,
-                 lr_lr: float, train_lr: bool, compute_dtype: str, device):
+                 lr_lr: float, train_lr: bool, compute_dtype: str, device,
+                 second_order: str = "rof"):
         self.core = MTTCore(model_name, channel, num_classes, tuple(im_size),
-                            frames, syn_steps, compute_dtype, device)
+                            frames, syn_steps, compute_dtype, device,
+                            second_order)
         self.lr_img, self.lr_lr, self.train_lr = lr_img, lr_lr, train_lr
 
     def loss(self, syn_images, syn_labels, syn_lr, theta_start, theta_target,
@@ -205,9 +275,11 @@ class S2DMTTStep:
 
     def __init__(self, model_name: str, channel: int, num_classes: int,
                  im_size, frames: int, syn_steps: int, s2d_cfg: S2DConfig,
-                 hyper: S2DHyper, compute_dtype: str, device):
+                 hyper: S2DHyper, compute_dtype: str, device,
+                 second_order: str = "rof"):
         self.core = MTTCore(model_name, channel, num_classes, tuple(im_size),
-                            frames, syn_steps, compute_dtype, device)
+                            frames, syn_steps, compute_dtype, device,
+                            second_order)
         self.s2d_cfg = s2d_cfg
         self.hyper = hyper
         self.syn_steps = syn_steps

@@ -37,15 +37,6 @@ def checkpoint_due(it: int) -> bool:
     return it % CHECKPOINT_EVERY == 0 and it > 0
 
 
-def check_second_order(cfg):
-    """MTT's outer backward keeps every inner step's graph ('full');
-    'remat' raises."""
-    if cfg.second_order == "remat":
-        raise NotImplementedError(
-            "second_order='remat': the port keeps every inner step's graph "
-            "('full'); checkpointing per inner step is a ROADMAP item")
-
-
 def parse_config_args(description: str, argv=None,
                       default_preset: Optional[str] = None,
                       config_cls=DistillConfig):

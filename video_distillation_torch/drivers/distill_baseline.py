@@ -37,8 +37,8 @@ from ..utils.checkpoint import restore_state, save_artifact, save_state
 from ..utils.device import resolve_device, step_generator, use_exact_fp32
 from ..utils.logging import MetricLogger, StepTimer
 from ..utils.visualize import save_video_grid
-from .common import (EVAL_STREAM, INIT_STREAM, EvalTracker, check_second_order,
-                     checkpoint_due, load_data, parse_config_args)
+from .common import (EVAL_STREAM, INIT_STREAM, EvalTracker, checkpoint_due,
+                     load_data, parse_config_args)
 
 
 def _init(cfg: DistillConfig, data, device, rng):
@@ -115,7 +115,6 @@ def run_mtt(cfg: DistillConfig, data, logger: MetricLogger,
     ``MTTStep``'s outputs."""
     device = resolve_device(cfg.device)
     use_exact_fp32()
-    check_second_order(cfg)
     meta = data.meta
     rng = np.random.default_rng(cfg.seed)
     syn, labels = _init(cfg, data, device, rng)
@@ -125,7 +124,7 @@ def run_mtt(cfg: DistillConfig, data, logger: MetricLogger,
     step_fn = MTTStep(cfg.model, meta.channel, meta.num_classes,
                       tuple(meta.im_size), cfg.frames, cfg.syn_steps,
                       cfg.lr_img, cfg.lr_lr, cfg.train_lr, cfg.compute_dtype,
-                      device)
+                      device, cfg.second_order)
     holder = {"syn": syn,
               "syn_lr": torch.tensor(float(cfg.lr_teacher), device=device),
               "mom_img": torch.zeros_like(syn),

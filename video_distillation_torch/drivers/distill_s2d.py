@@ -45,8 +45,8 @@ from ..utils.checkpoint import (restore_state, save_artifact,
 from ..utils.device import resolve_device, step_generator, use_exact_fp32
 from ..utils.logging import MetricLogger, StepTimer
 from ..utils.visualize import save_s2d_grids
-from .common import (EVAL_STREAM, EvalTracker, check_second_order,
-                     checkpoint_due, load_data, parse_config_args)
+from .common import (EVAL_STREAM, EvalTracker, checkpoint_due, load_data,
+                     parse_config_args)
 
 
 def build_s2d(cfg: DistillConfig, meta, device):
@@ -73,8 +73,6 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
     use_exact_fp32()
     if cfg.method not in ("DM", "MTT"):
         raise NotImplementedError(cfg.method)
-    if cfg.method == "MTT":
-        check_second_order(cfg)
     rng = np.random.default_rng(cfg.seed)
     meta = data.meta
     s2d_cfg, state = build_s2d(cfg, meta, device)
@@ -165,7 +163,7 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
         cfg.frames, cfg.syn_steps, s2d_cfg,
         S2DHyper(cfg.lr_static, cfg.lr_dynamic, cfg.lr_hal, cfg.lr_lr,
                  not cfg.no_train_static, cfg.train_lr),
-        cfg.compute_dtype, device)
+        cfg.compute_dtype, device, cfg.second_order)
 
     def segment():
         t0, t1, start_epoch = sampler.sample_segment(cfg.max_start_epoch,
