@@ -178,6 +178,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              1e-5 of fp64, or within 1e-2 where a max of that device's
              forward (the phase max, a later max-pool) picked another winner
              than the fp64 step's (ROADMAP C.13).
+10b. dist  — data parallelism (``video_distillation_torch.parallel``).
+             The S2D-MTT driver's ``parse_config_args`` and ``run`` at the
+             slice's configuration (bf16 with the fp32 head, 1 + 3 outer
+             steps, no evaluation; ``chip_smoke.py dist-drive``) twice at
+             once on the card: plain, and under ``python -m
+             torch.distributed.run --nproc_per_node 1`` (an NCCL group of
+             one rank, 21 all-reduces an outer step), with cuDNN and torch
+             asked for deterministic algorithms: losses and learned state
+             bit-equal. Then two gloo ranks spawned on the one card (NCCL
+             refuses two ranks on a device), the kernels already built by
+             this process, against this process's world-size-1 runs of
+             the same tasks: S2D-MTT at the slice's width (1 + 2 bf16
+             steps, and one step under remat), raw DM fp32 at full width on
+             the baselines' store row-sharded over the ranks (1 + 1 steps),
+             one fp32 S2D-MTT step and one FRePo proto step at 3 classes.
+             Each rank's launches of every kernel a step equal world size
+             1's (a DM rank's real chunks are its share's); all-reduces a
+             step (2 syn_steps + 1, remat 3 syn_steps + 1) and their bytes;
+             the sharded store holds ceil(N/2) rows a rank; bf16 losses
+             finite and within DIST_BF16_LOSS of world size 1's, fp32 DM
+             within DIST_LOSS, the small steps' loss within DIST_LOSS and
+             gradients within DIST_GRAD, or MTT_FP64_CAP where a max picked
+             another winner (C.13); peak memory and step seconds a rank
+             (two ranks share one card: no scaling is shown).
 11. frepo  — FRePo at full width through ``drivers.distill_frepo.main`` on
              the baselines' store, with the driver's defaults (ConvNet3D,
              ppc=dpc=1, n_hal=1, 10 pool nets, 100 online updates,
@@ -293,7 +317,8 @@ from video_distillation_torch.distill.dm import \
     init_synthetic_raw  # noqa: E402
 from video_distillation_torch.drivers import buffer as buffer_driver  # noqa: E402
 from video_distillation_torch.drivers import (  # noqa: E402
-    convert, distill_baseline, distill_coreset, distill_frepo, distill_static)
+    convert, distill_baseline, distill_coreset, distill_frepo, distill_s2d,
+    distill_static)
 from video_distillation_torch.drivers.common import load_data  # noqa: E402
 from video_distillation_torch.drivers.distill_s2d import (  # noqa: E402
     build_s2d, run)
@@ -313,6 +338,7 @@ from video_distillation_torch.ops.augment import (  # noqa: E402
 from video_distillation_torch.ops.augment_extra import \
     get_aug_by_name  # noqa: E402
 from video_distillation_torch.ops.augmax_ops import warp  # noqa: E402
+from video_distillation_torch import parallel  # noqa: E402
 from video_distillation_torch.utils.device import (  # noqa: E402
     step_generator, use_exact_fp32)
 from video_distillation_torch.utils import profiling  # noqa: E402
@@ -3068,6 +3094,449 @@ def phase_baselines(tmp):
     return data_path
 
 
+# the data-parallel phase: NCCL at world size 1 through the S2D-MTT
+# driver under torchrun, then gloo at world size 2 on the one card (NCCL
+# refuses two ranks on one device; gloo reduces CUDA tensors)
+DIST = dict(ranks=2, slice_steps=3, drive_iterations=3, dm_steps=2,
+            small_plan_batch=2, frepo_real=8)
+# the world-size-2 bf16 runs at full width: each loss within this of world
+# size 1's (relative)
+DIST_BF16_LOSS = 1e-2
+# the fp32 steps at 3 classes: loss within DIST_LOSS (relative), gradients
+# within DIST_GRAD (relative norm) of world size 1, or MTT_FP64_CAP where a
+# max picked another winner (C.13)
+DIST_LOSS, DIST_GRAD = 1e-5, 1e-4
+
+
+def dist_drive_argv(tmp, out):
+    """The S2D-MTT driver at the slice's configuration (full width, bf16
+    with the fp32 head, syn_steps 10) from ``tmp``'s buffer: 1 + 3 outer
+    steps, no evaluation (startIt past the last iteration)."""
+    nc, f, im = SLICE["num_classes"], SLICE["frames"], SLICE["im"]
+    it = DIST["drive_iterations"]
+    return ["--preset", "s2d_MTT_ms", "--dataset",
+            f"synthetic_c{nc}_n1_t1_f{f}_im{im}", "--buffer_path", tmp,
+            "--save_path", out, "--Iteration", str(it), "--startIt",
+            str(it + 1), "--max_start_epoch", "1", "--syn_steps",
+            str(SLICE["syn_steps"]), "--compute_dtype", "bfloat16",
+            "--device", "cuda"]
+
+
+def dist_drive_child(argv_json, out):
+    """``chip_smoke.py dist-drive``: the driver's own ``parse_config_args``
+    (which joins a group when ``torchrun`` started the process), its data
+    and its ``run``, with a hook that keeps each step's loss and
+    collectives; the learned state goes to ``out``. cuDNN and torch are
+    asked for deterministic algorithms, and the ops without one are
+    recorded."""
+    import warnings
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    use_exact_fp32()
+    cfg = distill_s2d.parse_config_args("S2D distillation",
+                                        json.loads(argv_json),
+                                        default_preset="s2d_MTT_ms")
+    cfg.s2d = True
+    data = load_data(cfg)
+    losses, collectives = [], []
+
+    def hook(it, o):
+        losses.append(float(o[4]))
+        collectives.append(dict(parallel.STATS))
+        parallel.reset_stats()
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        parallel.reset_stats()
+        holder = run(cfg, data, MetricLogger(quiet=True), step_hook=hook)
+    st = holder["state"]
+    torch.save({"losses": losses, "collectives": collectives,
+                "dynamic": st["dynamic"].cpu(),
+                "hals": [{k: v.cpu() for k, v in h.items()}
+                         for h in st["hals"]],
+                "syn_lr": holder["syn_lr"].cpu(),
+                "group": parallel.active(),
+                "backend": (str(torch.distributed.get_backend())
+                            if parallel.active() else None),
+                "world_size": parallel.world_size(),
+                "nondeterministic_ops": sorted({
+                    str(w.message).split(" does not")[0] for w in caught
+                    if "deterministic" in str(w.message)})}, out)
+
+
+def _drive_state_diff(a, b):
+    """Largest |difference| over the learned state and the losses of two
+    drive results."""
+    pairs = [(a["dynamic"], b["dynamic"]), (a["syn_lr"], b["syn_lr"]),
+             (torch.tensor(a["losses"]), torch.tensor(b["losses"]))]
+    pairs += [(x[k], y[k]) for x, y in zip(a["hals"], b["hals"]) for k in x]
+    return max(float((x.double() - y.double()).abs().max()) for x, y in pairs)
+
+
+def dist_nccl_world_one(tmp):
+    """The driver run twice at once on the card, without ``torchrun`` and
+    under ``torchrun --nproc_per_node 1`` (an NCCL group of one rank): the
+    losses and the learned state bit-equal."""
+    buf = os.path.join(tmp, "dist_buffer")
+    os.makedirs(buf, exist_ok=True)
+    slice_buffer(buf)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # deterministic cuBLAS
+    here = os.path.abspath(__file__)
+    procs, outs = {}, {}
+    for name, launch in (("plain", [sys.executable, here]),
+                         ("torchrun", [sys.executable, "-m",
+                                       "torch.distributed.run", "--standalone",
+                                       "--nproc_per_node", "1", here])):
+        outs[name] = os.path.join(tmp, f"dist_{name}.pt")
+        argv = dist_drive_argv(buf, os.path.join(tmp, f"dist_{name}"))
+        procs[name] = subprocess.Popen(
+            launch + ["dist-drive", json.dumps(argv), outs[name]],
+            cwd=os.path.dirname(here), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    res = {}
+    for name, p in procs.items():
+        log, _ = p.communicate(timeout=400)
+        if p.returncode != 0:
+            raise AssertionError(f"dist drive {name} failed:\n{log[-4000:]}")
+        res[name] = torch.load(outs[name], weights_only=False)
+    plain, tr = res["plain"], res["torchrun"]
+    assert not plain["group"] and plain["world_size"] == 1
+    assert tr["group"] and tr["backend"] == "nccl" and tr["world_size"] == 1
+    per_step = 2 * SLICE["syn_steps"] + 1
+    assert all(c["all_reduce"] == per_step for c in tr["collectives"]), \
+        tr["collectives"]
+    assert all(c["all_reduce"] == 0 for c in plain["collectives"])
+    diff = _drive_state_diff(tr, plain)
+    row = {"phase": "dist_nccl_world_1", "losses": tr["losses"],
+           "all_reduces_per_outer_step": per_step,
+           "all_reduce_bytes_per_outer_step": tr["collectives"][0]["bytes"],
+           "max_abs_diff_vs_no_group": diff,
+           "nondeterministic_ops": sorted(set(
+               plain["nondeterministic_ops"] + tr["nondeterministic_ops"]))}
+    emit(row)
+    assert diff == 0.0, f"NCCL world size 1 differs from no group by {diff}"
+
+
+def _counts():
+    return {**dict(hc.LAUNCHES), **first_stage_launches()}
+
+
+def _reset_counts():
+    hc.reset_launches()
+    reset_first_stage()
+    parallel.reset_stats()
+
+
+def _timed_step(fn):
+    """(output, seconds, launch counts, collectives) of one step, the
+    counts set to 0 just before it."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, _counts(), dict(parallel.STATS))
+
+
+def dist_slice(mode, steps):
+    """S2D-MTT at the slice's full width (``S2DMTTStep``, bf16 with the fp32
+    head, 50 clips an inner step, the preset's rates) from seed 0:
+    ``steps`` outer steps, each timed and counted."""
+    nc, f, im, s = (SLICE[k] for k in ("num_classes", "frames", "im",
+                                       "syn_steps"))
+    cfg = get_preset("s2d_MTT_ms")
+    cfg.s2d = True
+    s2d_cfg = S2DConfig(num_classes=nc, spc=cfg.spc, dpc=cfg.dpc, vpc=cfg.vpc,
+                        n_hal=cfg.n_hal, frames=f, im_size=(im, im))
+    state = init_s2d_state(torch.Generator("cuda").manual_seed(0), s2d_cfg,
+                           "cuda")
+    t0, t1 = (flat_param_template("ConvNet3D", 3, nc, (im, im), f,
+                                  torch.Generator("cuda").manual_seed(k),
+                                  "cuda")[1] for k in (0, 1))
+    step = S2DMTTStep("ConvNet3D", 3, nc, (im, im), f, s, s2d_cfg,
+                      S2DHyper(cfg.lr_static, cfg.lr_dynamic, cfg.lr_hal,
+                               cfg.lr_lr, not cfg.no_train_static,
+                               cfg.train_lr), "bfloat16", "cuda", mode)
+    moms, mom_lr = init_s2d_momentum(state), torch.zeros((), device="cuda")
+    syn_lr = torch.tensor(cfg.lr_teacher, device="cuda")
+    rng = np.random.default_rng(0)
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for it in range(steps):
+        plan = torch.as_tensor(make_batch_plan(
+            rng, nc * cfg.vpc, cfg.resolved_batch_syn(nc), s), device="cuda")
+        out, sec, counts, coll = _timed_step(lambda: step(
+            step_generator(0, it, "cuda"), state, syn_lr, moms, mom_lr, t0,
+            t1, plan))
+        state, syn_lr, moms, mom_lr = out[:4]
+        named = {"loss": out[4], **s2d_grads(out)}
+        bad = [k for k, v in named.items() if not _finite(v)]
+        assert not bad, f"dist slice {mode} step {it}: non-finite {bad}"
+        rows.append({"loss": float(out[4]), "seconds": sec,
+                     "launches": counts, "collectives": coll})
+    return {"steps": rows, "max_memory_allocated_gb":
+            torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def dist_dm(data_path, steps):
+    """Raw DM (the DM preset, fp32, ConvNet3D) at full width on the
+    baselines' store, row-sharded over the ranks: ``steps`` steps."""
+    c = BASELINES
+    store = load_packed(os.path.join(
+        data_path, f"{c['dataset']}_packed")).train
+    cfg = get_preset("DM")
+    tr = dm.make_dm_trainer(store, "ConvNet3D", 1, cfg.batch_real,
+                            cfg.lr_img, c["frames"], "float32",
+                            shard_store=True, device="cuda")
+    syn, labels = init_synthetic_raw(None, store, 1, c["frames"], "real",
+                                     np.random.default_rng(0), "cuda")
+    state = dm.DMState(syn, labels, torch.zeros_like(syn))
+    rng = np.random.default_rng(0)
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for it in range(steps):
+        (state, loss), sec, counts, coll = _timed_step(
+            lambda: tr(step_generator(0, it, "cuda"), state, rng))
+        assert np.isfinite(float(loss)) and _finite(state.syn_images)
+        rows.append({"loss": float(loss), "seconds": sec, "launches": counts,
+                     "collectives": coll})
+    local = getattr(tr.clips, "local", tr.clips)
+    return {"steps": rows, "store_rows": int(local.shape[0]),
+            "store_total_rows": len(store),
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def dist_dm_chunks(n):
+    """Real chunks of one DM rank's share at full width (batch_real 64 a
+    class, the classes split over the ranks when n divides 50)."""
+    c = BASELINES
+    clips = c["num_classes"] * get_preset("DM").batch_real
+    return -(-(clips // n if c["num_classes"] % n == 0 else clips)
+             // dm.REAL_CHUNK)
+
+
+def _log_numpy(log):
+    return [{"kind": c["kind"], "idx": c["idx"].numpy()} for c in log]
+
+
+def dist_small():
+    """One fp32 S2D-MTT step and one FRePo proto step at 3 classes,
+    64x64x8, from fixed seeds, with their routing decisions."""
+    c = BASELINES_SMALL
+    nc, f, im = c["num_classes"], c["frames"], c["im_size"][0]
+    out = {}
+    s2d_cfg = S2DConfig(num_classes=nc, frames=f, im_size=(im, im))
+    state = init_s2d_state(torch.Generator().manual_seed(3), s2d_cfg, "cpu")
+    state = {"static": state["static"].cuda(),
+             "dynamic": state["dynamic"].cuda(),
+             "hals": [{k: v.cuda() for k, v in h.items()}
+                      for h in state["hals"]]}
+    t0, t1 = (flat_param_template("ConvNet3D", 3, nc, (im, im), f,
+                                  torch.Generator().manual_seed(k))[1].cuda()
+              for k in (4, 5))
+    step = S2DMTTStep("ConvNet3D", 3, nc, (im, im), f, 2, s2d_cfg,
+                      S2DHyper(100.0, 0.01, 0.01, 1e-5, False, True),
+                      "float32", "cuda", "full")
+    plan = torch.as_tensor(make_batch_plan(np.random.default_rng(1), nc,
+                                           DIST["small_plan_batch"], 2),
+                           device="cuda")
+    log = []
+    with routing_log(log):
+        o = step(step_generator(0, 0, "cuda"), state, torch.tensor(0.01),
+                 init_s2d_momentum(state), torch.zeros((), device="cuda"),
+                 t0, t1, plan)
+    out["s2d_mtt"] = {"loss": float(o[4]),
+                      "grads": {k: v.float().cpu().numpy() for k, v in
+                                s2d_grads(o).items()},
+                      "log": _log_numpy(log)}
+    store = make_synthetic_video_data(**c).train
+    cfg = frepo.FRePoConfig(num_classes=nc, frames=f, im_size=(im, im),
+                            num_nn_state=2, max_online_updates=5,
+                            batch_real=DIST["frepo_real"])
+    static = np.random.default_rng(0).normal(size=(nc, im, im, 3)).astype(
+        np.float32)
+    tr = frepo.FRePoTrainer(store, "ConvNet3D", cfg,
+                            torch.Generator().manual_seed(1), static, "cpu")
+    sd = tr.state_dict()
+    tr = frepo.FRePoTrainer(store, "ConvNet3D", cfg, None, static, "cuda")
+    tr.load_state_dict(sd)
+    real_idx = torch.as_tensor(np.random.default_rng(2).choice(
+        len(store), size=cfg.batch_real, replace=False), device="cuda")
+    log = []
+    with routing_log(log):
+        loss, _, _, g = tr.proto_step(tr.pool.params(0), real_idx)
+    out["frepo"] = {"loss": float(loss),
+                    "grads": {"dynamic": g["dynamic"].cpu().numpy(),
+                              "hal_weight": g["hals"][0]["weight"].cpu().numpy(),
+                              "hal_bias": g["hals"][0]["bias"].cpu().numpy()},
+                    "log": _log_numpy(log)}
+    return out
+
+
+def dist_tasks(data_path):
+    """What the ranks run, and this process without a group for world size
+    1: the slice (bf16, 1 + 2 steps, and one step under remat), raw DM on
+    the row-sharded store (fp32, 1 + 1 steps), the small fp32 steps."""
+    res = {"slice": dist_slice("full", DIST["slice_steps"]),
+           "remat": dist_slice("remat", 1),
+           "dm": dist_dm(data_path, DIST["dm_steps"]),
+           "small": dist_small()}
+    torch.cuda.empty_cache()
+    return res
+
+
+def _dist_rank(rank, n, init_file, data_path, results):
+    """One gloo rank on card 0 (spawned)."""
+    import traceback
+
+    torch.cuda.set_device(0)
+    use_exact_fp32()
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank, world_size=n)
+    try:
+        results.put((rank, dist_tasks(data_path), None))
+    except BaseException:
+        results.put((rank, None, traceback.format_exc()))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _rank_log(rank_logs, ref):
+    """The ranks' routing decisions in world size 1's order: a call whose
+    decisions cover the whole batch on every rank (a replicated forward)
+    is rank 0's, one that covers each rank's share is the ranks' joined
+    along the batch axis."""
+    joined = []
+    for k, c in enumerate(ref):
+        parts = [log[k]["idx"] for log in rank_logs]
+        idx = (parts[0] if parts[0].shape == c["idx"].shape
+               else np.concatenate(parts))
+        joined.append({"kind": c["kind"], "idx": torch.from_numpy(idx)})
+    return joined
+
+
+def _small_vs_world1(world1, ranks_out, name):
+    ref = world1["small"][name]
+    ref_log = [{"kind": c["kind"], "idx": torch.from_numpy(c["idx"])}
+               for c in ref["log"]]
+    flipped = flips(_rank_log([r["small"][name]["log"] for r in ranks_out],
+                              ref["log"]), ref_log)
+    cap = MTT_FP64_CAP if flipped else DIST_GRAD
+    errs = []
+    for r, out in enumerate(ranks_out):
+        got = out["small"][name]
+        e = {"loss": abs(got["loss"] / ref["loss"] - 1)}
+        e.update({k: _rel(torch.as_tensor(v), torch.as_tensor(ref["grads"][k]))
+                  for k, v in got["grads"].items()})
+        errs.append(e)
+        assert e["loss"] <= (MTT_FP64_CAP if flipped else DIST_LOSS), (
+            name, r, e, flipped)
+        for k, v in e.items():
+            assert k == "loss" or v <= cap, (name, r, k, v, flipped)
+    return {"rel_err_per_rank": errs, "flips_vs_world_1": flipped, "cap": cap}
+
+
+def phase_dist(data_path, tmp):
+    """Data parallelism on the card: the NCCL world-size-1 drive, then two
+    gloo ranks against this process's world-size-1 runs of the same
+    tasks."""
+    import torch.multiprocessing as mp
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    dist_nccl_world_one(tmp)
+    world1 = dist_tasks(data_path)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    n = DIST["ranks"]
+    init_file = os.path.join(tmp, "dist_group")
+    procs = [ctx.Process(target=_dist_rank,
+                         args=(r, n, init_file, data_path, results))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in range(n):
+            rank, out, err = results.get(timeout=600)
+            if err:
+                errors.append(f"rank {rank}:\n{err}")
+                break
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30 if not errors else 1)
+            if p.is_alive():
+                p.terminate()
+    assert not errors, errors[0]
+    ranks_out = [got[r] for r in range(n)]
+    row = {"phase": "dist_gloo_world_2", "ranks": n, "per_rank": []}
+    for r, out in enumerate(ranks_out):
+        per = {"rank": r}
+        for task in ("slice", "remat", "dm"):
+            steps, ref = out[task]["steps"], world1[task]["steps"]
+            for s, (a, b) in enumerate(zip(steps, ref)):
+                # a DM rank embeds its share of the real clips: fewer chunks
+                want = b["launches"]
+                if task == "dm" and want["s2d2_pack"]:
+                    assert want == {**want,
+                                    **dm_step_launches(dist_dm_chunks(1))}
+                    want = {**want, **dm_step_launches(dist_dm_chunks(n))}
+                assert a["launches"] == want, (
+                    f"{task} step {s} rank {r}: launches {a['launches']}, "
+                    f"expected {want} (world size 1: {b['launches']})")
+                rel = abs(a["loss"] / b["loss"] - 1)
+                tol = DIST_BF16_LOSS if task != "dm" else DIST_LOSS
+                assert np.isfinite(a["loss"]) and rel <= tol, (
+                    task, s, r, a["loss"], b["loss"])
+            per[task] = {
+                "losses": [a["loss"] for a in steps],
+                "world_1_losses": [b["loss"] for b in ref],
+                "launches_per_step": steps[0]["launches"],
+                "all_reduces_per_step": [a["collectives"]["all_reduce"]
+                                         for a in steps],
+                "all_reduce_mb_per_step": [a["collectives"]["bytes"] / 2 ** 20
+                                           for a in steps],
+                "step_seconds": [a["seconds"] for a in steps],
+                "max_memory_allocated_gb": out[task]["max_memory_allocated_gb"]}
+        s = SLICE["syn_steps"]
+        assert per["slice"]["all_reduces_per_step"] == [2 * s + 1] * DIST[
+            "slice_steps"], per["slice"]["all_reduces_per_step"]
+        assert per["remat"]["all_reduces_per_step"] == [3 * s + 1]
+        rows = out["dm"]["store_rows"]
+        assert rows == -(-out["dm"]["store_total_rows"] // n), rows
+        per["dm"]["store_rows"] = rows
+        timed = out["slice"]["steps"][1:]
+        per["slice"]["steps_per_sec_two_ranks_one_card"] = (
+            len(timed) / sum(a["seconds"] for a in timed))
+        row["per_rank"].append(per)
+    # the replicas stay equal: every rank's loss of every step the same
+    # (the updates are all-reduced or rank 0's)
+    row["ranks_bit_equal"] = {}
+    for task in ("slice", "remat", "dm"):
+        losses = [[a["loss"] for a in out[task]["steps"]] for out in ranks_out]
+        for other in losses[1:]:
+            for a, b in zip(other, losses[0]):
+                assert abs(a / b - 1) <= 1e-6, (task, losses)
+        row["ranks_bit_equal"][task] = all(x == losses[0] for x in losses)
+    row["world_1"] = {
+        "slice_steps_per_sec": (len(world1["slice"]["steps"]) - 1) / sum(
+            a["seconds"] for a in world1["slice"]["steps"][1:]),
+        "store_rows": world1["dm"]["store_rows"]}
+    row["note"] = ("two ranks share one card: steps/s shows no scaling, "
+                   "only that the path runs")
+    row["small_vs_world_1"] = {name: _small_vs_world1(world1, ranks_out, name)
+                               for name in ("s2d_mtt", "frepo")}
+    row["seconds"] = time.perf_counter() - t_start
+    emit(row)
+    emit({"phase": "dist", "seconds": row["seconds"], "ok": True})
+
+
 # FRePo at full width on the baselines' store, with the driver's defaults
 # (ConvNet3D, ppc=dpc=1, n_hal=1, 10 pool nets of 100 online updates,
 # batch_real 512, lr_d 1e2): 3 iterations, one evaluation at the last with
@@ -3272,6 +3741,7 @@ def main():
         phase_expert()
         phase_static(tmp)
         data_path = phase_baselines(tmp)
+        phase_dist(data_path, tmp)
         phase_frepo(data_path, tmp)
         phase_zoo(data_path, tmp)
         phase_images(tmp)
@@ -3291,4 +3761,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["dist-drive"]:
+        dist_drive_child(*sys.argv[2:4])
+    else:
+        main()

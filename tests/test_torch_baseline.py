@@ -17,8 +17,8 @@ and its baseline drivers at a toy size.
   DM and MTT and ``distill_s2d --preset s2d_DM_ms`` write their artifacts,
   and a run resumed from a checkpoint ends bit-equal to an uninterrupted
   one; ``distill_coreset`` picks clips of each class and logs finite
-  accuracies; the paths not ported (``shard_store``, other methods)
-  raise.
+  accuracies; other methods raise, and so does a ``mesh_shape`` that
+  does not hold the launch's ranks.
 """
 
 import os
@@ -275,8 +275,17 @@ def test_coreset_driver(method):
     assert 0.0 <= mean <= 1.0 and np.isfinite(std)
 
 
+def test_mesh_shape_must_hold_the_launch(tmp_path):
+    # a mesh of 4 devices in a launch of one rank (no process group here)
+    cfg = distill_baseline.parse_config_args(
+        "", ["--device", "cpu", "--preset", "DM", "--dataset", DS,
+             "--save_path", str(tmp_path)])
+    cfg.mesh_shape = (2, 2)
+    with pytest.raises(ValueError, match="mesh_shape"):
+        distill_baseline.run_dm(cfg, None, MetricLogger(quiet=True))
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--preset", "DM", "--shard_store", "true"], "A.16"),
     (["--method", "FRePo"], "FRePo"),
 ])
 def test_baseline_paths_not_ported_raise(flags, match, tmp_path):

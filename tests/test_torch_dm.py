@@ -230,11 +230,24 @@ def test_first_stage_calls_per_dm_step(stores, monkeypatch, s2d):
                       "hal_fwd": hal, "hal_dgrad": hal, "hal_wgrad": hal}
 
 
-def test_shard_store_raises_naming_its_roadmap_item(stores):
+def test_shard_store_at_world_size_one_equals_the_replicated_store(stores):
+    # without a process group the "sharded" store is the whole store on the
+    # device, and a DM step with it is the replicated step bit for bit
     _, pst = stores
-    with pytest.raises(NotImplementedError, match="A.16"):
-        dm.make_dm_trainer(pst, "ConvNet3D", 1, BR, 1.0, F, shard_store=True,
-                           device="cpu")
+    whole = pst.device_clips("cpu")
+    assert torch.equal(pst.device_clips("cpu", sharded=True), whole)
+    syn = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(NC, F, IM, IM, 3)).astype(np.float32))
+    out = []
+    for shard in (False, True):
+        tr = dm.make_dm_trainer(pst, "ConvNet3D", 1, BR, 1.0, F,
+                                shard_store=shard, device="cpu")
+        state, loss = tr(torch.Generator().manual_seed(0),
+                         dm.DMState(syn, torch.arange(NC), torch.zeros_like(syn)),
+                         np.random.default_rng(2))
+        out.append((state.syn_images, loss))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1],
+                                                              out[1][1])
 
 
 def test_init_synthetic_raw_defaults_to_the_card():

@@ -124,7 +124,7 @@ def test_run_resumes_from_its_checkpoint(jax_buffer_dir, tmp_path):
 
 
 @pytest.mark.parametrize("fields,error,match", [
-    ({"method": "DM", "shard_store": True}, NotImplementedError, "A.16"),
+    ({"mesh_shape": (2,)}, ValueError, "mesh_shape"),
     ({"device": "cuda"}, RuntimeError, "CUDA is not available"),
 ])
 def test_unported_paths_raise(jax_buffer_dir, tmp_path, fields, error, match):

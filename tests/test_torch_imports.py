@@ -63,4 +63,34 @@ def test_package_imports_with_jax_blocked():
         "drivers.distill_coreset", "distill.frepo",
         "drivers.distill_frepo", "data.image_datasets", "ops.zca", "ops.ema",
         "models.classic", "models.frepo_nets", "ops.augment",
-        "ops.augment_extra", "ops.augmax_ops", "utils.profiling")} <= names
+        "ops.augment_extra", "ops.augmax_ops", "utils.profiling",
+        "parallel", "parallel.dist")} <= names
+
+
+def test_parallel_imports_and_runs_with_jax_blocked():
+    """The data-parallel layer needs no JAX: without a launcher it is world
+    size 1, and a gloo group of one rank sums as the identity."""
+    code = (
+        "import os, sys, tempfile\n"
+        f"for m in {BANNED!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import torch, torch.distributed as d\n"
+        "from video_distillation_torch import parallel\n"
+        "assert parallel.init_distributed('cpu') is False\n"
+        "assert parallel.world_size() == 1 and parallel.is_coordinator()\n"
+        "f = os.path.join(tempfile.mkdtemp(), 'g')\n"
+        "d.init_process_group('gloo', init_method='file://' + f, rank=0,\n"
+        "                     world_size=1)\n"
+        "t = parallel.all_reduce_(torch.arange(3.0))\n"
+        "assert t.tolist() == [0.0, 1.0, 2.0] and parallel.active()\n"
+        "assert parallel.STATS == {'all_reduce': 1, 'broadcast': 0,\n"
+        "                          'bytes': 12}\n"
+        "d.destroy_process_group()\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["PYTHONPATH"] = str(ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["ok"]

@@ -73,7 +73,9 @@ class DistillConfig:
 
     # execution
     device: str = "cuda"                 # 'cpu' only when asked for
-    mesh_shape: Tuple[int, ...] = (1,)   # data-parallel devices
+    # data-parallel devices, the JAX field: the product of a shape other
+    # than (1,) must equal the launch's world size (the drivers raise)
+    mesh_shape: Tuple[int, ...] = (1,)
     compute_dtype: str = "float32"       # 'bfloat16' to run convs in bf16
     # MTT outer-backward mode: 'rof' (custom-VJP reverse-over-forward,
     # fastest), 'remat' (checkpointed reverse-over-reverse), 'full'

@@ -4,8 +4,10 @@ Port of ``video_distillation_tpu/data/store.py``: ``ClipStore`` (fixed
 train clips, uploaded once as uint8 and gathered on the device),
 ``RaggedFrameStore`` (ragged test videos with the reference's temporal-crop
 rules) and ``VideoData``, and the directory format that ``data/packer.py``
-(and the JAX package's copy of it) writes. Row-sharding the clip store
-over several devices (``shard_store``) is not ported (ROADMAP A.16).
+(and the JAX package's copy of it) writes. Under a process group of n
+ranks, ``device_clips(sharded=True)`` row-shards the clip store: each rank
+holds ceil(N/n) rows (``ShardedClips``), and a gather of global indices is
+a collective that fetches every row from its owner.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..parallel import dist
 from .meta import FRAME_GAP, DatasetMeta
 
 
@@ -48,6 +51,47 @@ def normalize_u8(x: torch.Tensor, mean, std) -> torch.Tensor:
     return (x.float() - m) / s
 
 
+class ShardedClips:
+    """This rank's rows of a flat (N, D) uint8 store row-sharded over the
+    ranks: rows ``[r·R, (r+1)·R)`` with R = ceil(N/n), the last rank's
+    padded with zero rows (the JAX package's ``P('data', None)`` store).
+    No rank holds the whole store."""
+
+    def __init__(self, flat: np.ndarray, device):
+        n, r = dist.world_size(), dist.rank()
+        self.total = flat.shape[0]
+        self.rows_per_rank = -(-self.total // n)
+        self.start = r * self.rows_per_rank
+        mine = flat[self.start:self.start + self.rows_per_rank]
+        self.local = torch.zeros((self.rows_per_rank, flat.shape[1]),
+                                 dtype=torch.uint8, device=device)
+        if len(mine):
+            self.local[:len(mine)] = torch.from_numpy(
+                np.ascontiguousarray(mine)).to(device)
+
+    def gather(self, idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` (global indices < N, this rank's request) of the
+        whole store. A collective: every rank calls it, each with its own
+        request. The requests are summed into one table; each rank fills
+        the requested rows it owns, and a SUM reduction (exact: one owner a
+        row) hands each rank its rows."""
+        n, r, dev = dist.world_size(), dist.rank(), self.local.device
+        idx = torch.as_tensor(idx, device=dev).reshape(-1).long()
+        lengths = torch.zeros(n, dtype=torch.long, device=dev)
+        lengths[r] = idx.numel()
+        dist.all_reduce_(lengths)
+        longest = int(lengths.max())
+        table = torch.zeros((n, longest), dtype=torch.long, device=dev)
+        table[r, :idx.numel()] = idx + 1  # 0: no row
+        dist.all_reduce_(table)
+        want = table - 1 - self.start
+        mine = (table > 0) & (want >= 0) & (want < self.rows_per_rank)
+        rows = torch.zeros((n, longest, self.local.shape[1]),
+                           dtype=torch.uint8, device=dev)
+        rows[mine] = self.local[want[mine]]
+        return dist.reduce_scatter(rows)[:idx.numel()]
+
+
 @dataclasses.dataclass
 class ClipStore:
     """Fixed-shape clip tensor (the train split), uploaded to the device
@@ -73,22 +117,26 @@ class ClipStore:
     def item_shape(self):
         return self.clips.shape[1:]
 
-    def device_clips(self, device, sharded: bool = False) -> torch.Tensor:
+    def device_clips(self, device, sharded: bool = False):
         """The uint8 clips on ``device`` (cached per device), flattened to
-        (N, prod(item_shape)); consumers reshape gathered rows back."""
-        if sharded:
-            raise NotImplementedError(
-                "shard_store: row-sharding the clip store over several "
-                "devices is not ported yet (ROADMAP A.16)")
-        key = str(torch.device(device))
+        (N, prod(item_shape)); consumers reshape gathered rows back. With
+        ``sharded`` under a group of n > 1 ranks, this rank's ceil(N/n)
+        rows (``ShardedClips``; the whole store at world size 1)."""
+        key = (str(torch.device(device)),
+               sharded and dist.world_size() > 1)
         if key not in self._device_clips:
-            flat = np.ascontiguousarray(self.clips).reshape(len(self), -1)
-            self._device_clips[key] = torch.from_numpy(flat).to(device)
+            flat = np.asarray(self.clips).reshape(len(self), -1)
+            self._device_clips[key] = (
+                ShardedClips(flat, device) if key[1] else
+                torch.from_numpy(np.ascontiguousarray(flat)).to(device))
         return self._device_clips[key]
 
-    def gather_clips(self, clips2d: torch.Tensor, idx) -> torch.Tensor:
-        """Gather rows from device_clips() -> (len(idx), *item_shape)."""
-        return clips2d[idx].reshape((-1,) + tuple(self.item_shape))
+    def gather_clips(self, clips2d, idx) -> torch.Tensor:
+        """Gather rows from device_clips() -> (len(idx), *item_shape); from
+        a ``ShardedClips``, a collective every rank calls."""
+        rows = (clips2d.gather(idx) if isinstance(clips2d, ShardedClips)
+                else clips2d[idx])
+        return rows.reshape((-1,) + tuple(self.item_shape))
 
     def class_table(self) -> Tuple[np.ndarray, np.ndarray]:
         """(indices (C, max_count) padded with repeats, counts (C,))."""

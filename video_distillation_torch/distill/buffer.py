@@ -16,6 +16,14 @@ in bf16 from fp32 master weights; the snapshots are fp32. A snapshot is
 the JAX package's flat vector (``distill/params.py``), written as
 ``replay_buffer_{n}.npz`` by ``TrajectoryBuffer.save``, so either package
 reads the other's buffers.
+
+Data parallelism (``parallel/dist.py``): the batch is rounded up to a
+multiple of the world size (JAX buffer.py:128, so an expert's batches
+change with the device count when ``batch_train`` is not a multiple of
+it); each rank takes its columns of every step's -1-padded batch, draws
+the flips and dropout keep-masks of the whole batch, standardises with
+statistics summed over the ranks and sums the gradient; only the
+coordinator writes the buffers.
 """
 
 from __future__ import annotations
@@ -30,9 +38,11 @@ from torch.func import functional_call
 
 from ..config import BufferConfig
 from ..data.store import ClipStore, VideoData
+from ..parallel import dist
 from ..utils.device import resolve_device, step_generator
 from .evaluate import _batch_standardize, _cdiv, fresh_net
-from .mtt import _DTYPES, TrajectoryBuffer, masked_ce
+from .mtt import (_DTYPES, TrajectoryBuffer, draw_keep_mask, masked_ce,
+                  plan_denoms)
 
 
 @dataclasses.dataclass
@@ -55,12 +65,16 @@ def train_expert(generator: Optional[torch.Generator], store: ClipStore,
     clips = store.device_clips(device, sharded=cfg.shard_store)
     model, theta, layout = fresh_net(cfg.model, meta, cfg.frames, generator,
                                      device, None if draws is None else draws.theta)
-    mom = torch.zeros_like(theta)
     cdt = _DTYPES[cfg.compute_dtype]
+    # fp32 master weights (fp64 in an fp64 reference run)
+    master = torch.promote_types(cdt, torch.float32)
+    theta = theta.to(master)
+    mom = torch.zeros_like(theta)
     labels = torch.as_tensor(store.labels, device=device).long()
 
     n = len(store)
     batch = min(cfg.batch_train, n)
+    batch += (-batch) % dist.world_size()
     nb = _cdiv(n, batch)
     # each snapshot is a copy on the host, never a view of the live θ: on
     # the CPU, .detach().cpu() would alias it (ROADMAP C.1)
@@ -76,36 +90,44 @@ def train_expert(generator: Optional[torch.Generator], store: ClipStore,
         plan = torch.as_tensor(perm.reshape(nb, batch), device=device).long()
         corrects, counts = [], []
         for s in range(nb):
-            idx = plan[s]
+            idx = dist.split_columns(plan[s], fill=-1)
             w = (idx >= 0).float()
             safe = idx.clamp_min(0)
-            x = store.normalize(store.gather_clips(clips, safe))
+            # fp32 (fp64 in an fp64 reference run) until the net's cast
+            x = store.normalize(store.gather_clips(clips, safe)).to(master)
             if draws is not None:
                 flip = torch.as_tensor(np.asarray(draws.flips[e][s]),
                                        device=device).bool()
             else:
                 flip = torch.rand(batch, generator=generator,
                                   device=device) < 0.5
+            km = (draw_keep_mask(model, generator, batch, *x.shape[1:4],
+                                 device) if keep_masks is None
+                  else torch.as_tensor(keep_masks[e][s], device=device))
+            flip = dist.split_columns(flip)
             x = torch.where(flip[:, None, None, None, None], x.flip(3), x)
-            x = _batch_standardize(x, w)
+            x = _batch_standardize(x, w, across_ranks=True)
             theta.requires_grad_(True)
             params = {k: v.to(cdt) for k, v in layout.unflatten(theta).items()}
             logits = functional_call(
                 model, params, (x.to(cdt),),
                 dict(train=True, generator=generator,
-                     keep_mask=None if keep_masks is None else keep_masks[e][s]))
+                     keep_mask=None if km is None else dist.split_columns(
+                         km, 0, fill=True)))
             y = labels[safe]
-            loss = masked_ce(logits, y, w)
+            loss = masked_ce(logits, y, w, plan_denoms(plan[s]))
             (grad,) = torch.autograd.grad(loss, theta)
+            dist.all_reduce_(grad)
             with torch.no_grad():
                 theta = theta.detach()
                 mom = cfg.mom * mom + grad + cfg.l2 * theta
                 theta = theta - lr * mom
                 corrects.append(((logits.float().argmax(-1) == y).float()
                                  * w).sum())
-                counts.append(w.sum())
+                counts.append((plan[s] >= 0).sum())
         snapshots.append(theta.to("cpu", copy=True))
-        acc = float(torch.stack(corrects).sum() / torch.stack(counts).sum())
+        correct = dist.all_reduce_(torch.stack(corrects).sum())
+        acc = float(correct / torch.stack(counts).sum())
         if e == decay_after:
             lr *= 0.1
             mom = torch.zeros_like(theta)  # optimizer recreated
@@ -117,12 +139,18 @@ def generate_buffers(data: VideoData, cfg: BufferConfig,
     """Train all experts; writes replay_buffer_{n}.npz files every
     ``save_interval`` experts (buffer.py:98-104). Returns the file paths.
     Expert ``i`` draws from ``step_generator(cfg.seed, i)``; the batch
-    permutations from one numpy generator seeded ``cfg.seed``."""
+    permutations from one numpy generator seeded ``cfg.seed``. Every rank
+    trains each expert; the coordinator writes the files."""
     device = resolve_device(cfg.device)
     os.makedirs(cfg.buffer_path, exist_ok=True)
     np_rng = np.random.default_rng(cfg.seed)
     paths = []
     trajectories = []
+    # the first free file number, found before any rank writes
+    n = 0
+    while os.path.exists(os.path.join(cfg.buffer_path,
+                                      f"replay_buffer_{n}.npz")):
+        n += 1
     for it in range(cfg.num_experts):
         traj, acc = train_expert(step_generator(cfg.seed, it, device),
                                  data.train, cfg, np_rng, device)
@@ -130,14 +158,12 @@ def generate_buffers(data: VideoData, cfg: BufferConfig,
         if progress:
             progress(it, acc)
         if len(trajectories) == cfg.save_interval:
-            n = 0
-            while os.path.exists(os.path.join(
-                    cfg.buffer_path, f"replay_buffer_{n}.npz")):
-                n += 1
             path = os.path.join(cfg.buffer_path, f"replay_buffer_{n}.npz")
-            TrajectoryBuffer(np.stack(trajectories)).save(path)
+            if dist.is_coordinator():
+                TrajectoryBuffer(np.stack(trajectories)).save(path)
             paths.append(path)
             trajectories = []
+            n += 1
     return paths
 
 

@@ -15,6 +15,15 @@ per-class index plan is drawn on the host with numpy, the JAX package's
 draw (``ClipStore.sample_per_class``). The synthetic embed runs with
 gradient into the synthetic tensor (or, through ``hallucinate``, into the
 S2D state), so its first stage runs the s2d2 unpack kernel.
+
+Data parallelism (``parallel/dist.py``): the real embed is split over
+whichever axis of the (C, batch_real) index the world size divides
+(``dist.split_divisible``: classes, else the clips of each class), still in
+chunks, and the per-class feature sums are all-reduced; the synthetic side
+is replicated, and its gradient is rank 0's on every rank (broadcast), so
+the replicas take the same update. With ``shard_store``
+each rank holds ceil(N/n) rows of the clip store and the gathers of the
+real clips are collectives.
 """
 
 from __future__ import annotations
@@ -29,9 +38,10 @@ from torch.func import functional_call
 from ..data.store import ClipStore
 from ..models.registry import path_model
 from ..ops.losses import dm_loss
+from ..parallel import dist
 from .mtt import _DTYPES
-from .s2d import (S2DConfig, distill_slots, grad_leaves, hallucinate,
-                  momentum_sgd, state_grads)
+from .s2d import (S2DConfig, distill_slots, grad_leaves, grad_tensors,
+                  hallucinate, momentum_sgd, state_grads)
 
 # Real clips embedded per forward. The fused first stage's GEMM output is
 # clips x 16 x 28 x 28 rows x 256 channels at 112x112x16: 320 clips give
@@ -134,8 +144,6 @@ class _DMTrainerBase:
         self.num_classes = meta.num_classes
         self.device = torch.device(device)
         self.cdt = _DTYPES[compute_dtype]
-        # row-sharding the store over several cards is ROADMAP A.16: this
-        # raises naming it
         self.clips = store.device_clips(self.device, sharded=shard_store)
         self.model = path_model(model_name, meta.channel, meta.num_classes,
                                 tuple(meta.im_size), frames,
@@ -154,19 +162,33 @@ class _DMTrainerBase:
                                device=self.device)
 
     def real_feats(self, params, real_idx):
-        """(C, batch_real, D) fp32 features of the real clips ``real_idx``
-        (C, batch_real)."""
+        """(c, b, D) fp32 features of the real clips ``real_idx`` (c, b)."""
         feats = real_features(self.model, params, self.store, self.clips,
                               real_idx.reshape(-1), self.norm_mean,
                               self.norm_std, self.cdt, self.chunk)
         return feats.view(real_idx.shape[0], real_idx.shape[1], -1)
 
-    def loss(self, params, feat_real, x, per_class: int):
+    def real_mean(self, params, real_idx):
+        """(C, D) class means of the features of the real clips
+        ``real_idx`` (C, batch_real): this rank embeds its share of the
+        index (``dist.split_divisible``) and the per-class sums are summed
+        over the ranks."""
+        axis, mine = dist.split_divisible(real_idx)
+        sums = self.real_feats(params, mine).sum(dim=1)
+        if axis == 0:  # this rank's classes, in place among all
+            full = sums.new_zeros((real_idx.shape[0], sums.shape[1]))
+            full[dist.rank() * len(sums):][:len(sums)] = sums
+            sums = full
+        if axis is not None:
+            dist.all_reduce_(sums)
+        return sums / real_idx.shape[1]
+
+    def loss(self, params, mean_real, x, per_class: int):
         """sum_c ||mean real_c - mean syn_c||^2 in fp32 (dm.py:127-131) of
         the synthetic clips ``x``, ``per_class`` a class in class order."""
         feat_syn = embed(self.model, params, x.to(self.cdt))
-        return dm_loss(feat_real, feat_syn.view(self.num_classes, per_class,
-                                                -1), self.num_classes)
+        return dm_loss(mean_real, feat_syn.view(self.num_classes, per_class,
+                                                -1))
 
     def cast(self, params):
         return {k: v.to(self.cdt) for k, v in params.items()}
@@ -199,10 +221,11 @@ class DMTrainer(_DMTrainerBase):
         clips ``real_idx`` (C, batch_real): returns (syn_images, mom,
         loss). The inputs are not modified."""
         p = self.cast(params)
-        feat_real = self.real_feats(p, real_idx)
+        mean_real = self.real_mean(p, real_idx)
         syn = syn_images.detach().requires_grad_(True)
-        loss = self.loss(p, feat_real, syn, self.ipc)
+        loss = self.loss(p, mean_real, syn, self.ipc)
         (g,) = torch.autograd.grad(loss, syn)
+        dist.broadcast_tensors_([g])
         with torch.no_grad():
             mom = 0.5 * mom + g
             return syn_images - self.lr_img * mom, mom, loss.detach()
@@ -263,11 +286,12 @@ class S2DDMTrainer(_DMTrainerBase):
         """One S2D-DM update against the net ``params`` (fp32): returns
         (state, moms, loss). The inputs are not modified."""
         p = self.cast(params)
-        feat_real = self.real_feats(p, real_idx)
+        mean_real = self.real_mean(p, real_idx)
         leaf = grad_leaves(state, self.train_static)
         videos, _ = self.compose(leaf, generator, draws)
-        loss = self.loss(p, feat_real, videos, self.s2d_cfg.vpc)
+        loss = self.loss(p, mean_real, videos, self.s2d_cfg.vpc)
         g, _ = state_grads(loss, leaf, self.train_static)
+        dist.broadcast_tensors_(grad_tensors(g))
         trained = {"static": self.train_static, "dynamic": True, "hals": True}
         new_state, new_moms = momentum_sgd(state, moms, g, self.lrs, trained,
                                            0.95)

@@ -54,6 +54,14 @@ activation (ROADMAP C.15), the nets go in groups (``net_groups``).
 The randomness can be injected (``draws``, ``keep_masks``; for
 ``evaluate_many`` one of each per net), so a test hands both packages the
 same initial parameters, permutations, slot draws and dropout masks.
+
+Data parallelism (``parallel/dist.py``; JAX evaluate.py:225-238, 420-426):
+each training step's batch is padded with -1 to a multiple of the world
+size and split; every rank draws the slots and keep-masks of the whole
+batch, composes its own columns, standardises them with statistics summed
+over the ranks, divides its loss by the whole batch's weight, and sums
+each net's gradient over the ranks. The test batches of 64 are split when
+the world size divides 64, and the hit counts summed.
 """
 
 from __future__ import annotations
@@ -68,9 +76,10 @@ from torch.func import functional_call
 from ..data.store import VideoData, normalize_u8
 from ..models.registry import is_video_model
 from ..ops.metrics import per_class_correct, topk_correct
+from ..parallel import dist
 from . import dm
 from .frepo import bias_correction
-from .mtt import flat_param_template, masked_ce
+from .mtt import draw_keep_mask, flat_param_template, masked_ce, plan_denoms
 from .params import layout_for
 from .s2d import S2DConfig, eval_slot_draw, hallucinate_frozen
 
@@ -125,22 +134,25 @@ def fresh_net(model_name: str, meta, frames: int, generator, device,
               theta=None, im_size=None):
     """(model, θ, layout): a freshly initialised net for ``im_size`` input
     (the dataset's by default), its parameters as one flat fp32 vector in
-    the JAX order (taken from ``theta`` if given), and the layout that maps
-    θ onto the model."""
+    the JAX order (taken from ``theta`` if given; an fp64 ``theta``, for a
+    reference run on the CPU, stays fp64 and the evaluation runs in fp64),
+    and the layout that maps θ onto the model."""
     model, init = flat_param_template(model_name, meta.channel,
                                       meta.num_classes,
                                       tuple(im_size or meta.im_size),
                                       frames, generator, device)
     model.requires_grad_(False)
     if theta is not None:
-        init = torch.tensor(np.asarray(theta, np.float32),
+        theta = np.asarray(theta)
+        init = torch.tensor(theta.astype(np.promote_types(theta.dtype,
+                                                          np.float32)),
                             device=device).reshape(-1)
     return model, init, layout_for(model)
 
 
 def _video_crop(x, model_name):
     if model_name.startswith("VideoConvNet"):
-        return x[:, :, 24:-24, 24:-24, :]
+        return x[..., 24:-24, 24:-24, :]
     return x
 
 
@@ -160,12 +172,25 @@ def net_groups(nets: int, clips: int, clip_elements: int):
     return [slice(i, min(i + per, nets)) for i in range(0, nets, per)]
 
 
-def _batch_standardize(x, weights):
-    """(x - mean)/std with scalar statistics over the valid rows only."""
-    w = weights.reshape((-1,) + (1,) * (x.dim() - 1))
-    n = weights.sum() * float(np.prod(x.shape[1:]))
-    mean = (x * w).sum() / n
-    var = (((x - mean) ** 2) * w).sum() / n
+def _batch_standardize(x, weights, across_ranks: bool = False):
+    """(x - mean)/std with scalar statistics over the valid rows only:
+    ``weights`` (..., B) weighs the rows of ``x`` (..., B, *item), one pair
+    of statistics per leading index (per net of a batched evaluation).
+    ``across_ranks``: x holds this rank's rows of a batch split over the
+    ranks, and the sums are summed over them."""
+    lead = weights.dim() - 1
+    dims = tuple(range(lead, x.dim()))
+    w = weights.reshape(weights.shape + (1,) * (x.dim() - weights.dim()))
+    sums = torch.stack([(x * w).sum(dims), weights.sum(-1)])
+    if across_ranks:
+        dist.all_reduce_(sums)
+    expand = (1,) * (x.dim() - lead)
+    n = sums[1] * float(np.prod(x.shape[weights.dim():]))
+    mean = (sums[0] / n).reshape(n.shape + expand)
+    sq = (((x - mean) ** 2) * w).sum(dims)
+    if across_ranks:
+        dist.all_reduce_(sq)
+    var = (sq / n).reshape(n.shape + expand)
     return (x - mean) / torch.sqrt(var + 1e-12)
 
 
@@ -280,16 +305,20 @@ class _Trainer:
         lr = self.cfg.lr_net * 0.1 if epoch > self.drop_epoch else self.cfg.lr_net
         return lr, epoch == self.drop_epoch + 1 and step % self.nb == 0
 
-    def batch(self, safe, generator, slot=None):
-        """(x, y) for dataset indices ``safe`` of any leading shape: the
-        multi-static videos composed from fresh slot draws in one
+    def batch(self, idx, generator, slot=None):
+        """(x, y, w) of this rank's columns of the dataset indices ``idx``
+        (..., bt), -1 where a batch is short: the multi-static videos
+        composed from fresh slot draws (made for the whole batch) in one
         ``hallucinate_frozen`` call (one ``hal_fused`` launch for all of
-        them), or the raw synthetic rows."""
-        lead = tuple(safe.shape)
+        them), or the raw synthetic rows; w weighs the rows."""
+        w = dist.split_columns((idx >= 0).float())
+        safe = idx.clamp_min(0)
         if self.cfg.mode == "multi-static":
             c = self.s2d_cfg
-            label, s_idx, d_idx, h_idx = (t.reshape(-1) for t in eval_slot_draw(
-                safe, c.spc, c.dpc, c.n_hal, generator, slot))
+            draws = [dist.split_columns(t) for t in eval_slot_draw(
+                safe, c.spc, c.dpc, c.n_hal, generator, slot)]
+            lead = tuple(draws[0].shape)
+            label, s_idx, d_idx, h_idx = (t.reshape(-1) for t in draws)
             static = self.s2d_state["static"][s_idx]
             dynamic = self.s2d_state["dynamic"][label, d_idx]
             hals = self.s2d_state["hals"]
@@ -300,27 +329,54 @@ class _Trainer:
                                                        c.hal_mode)
                                     for p in hals])
                 x = outs[h_idx, torch.arange(h_idx.numel(), device=self.device)]
-            return x.reshape(lead + tuple(x.shape[1:])), label.reshape(lead)
-        x = self.syn2d[safe.reshape(-1)].reshape(lead + self.item_shape)
-        return x, self.labels[safe]
+            return (x.reshape(lead + tuple(x.shape[1:])), label.reshape(lead),
+                    w)
+        safe = dist.split_columns(safe)
+        x = self.syn2d[safe.reshape(-1)].reshape(tuple(safe.shape)
+                                                 + self.item_shape)
+        return x, self.labels[safe], w
 
-    def loss(self, model, params, x, y, w, keep_mask=None, generator=None):
-        """(loss, hits): one net's training loss on its batch and its
-        weighted count of correct predictions."""
+    def keep_mask(self, model, generator, nets: Optional[int] = None):
+        """This rank's columns of a dropout keep-mask drawn for the whole
+        batch: for one net the draw the forward would make, for ``nets``
+        the batched evaluation's (``_keep_masks``); None without dropout."""
+        if nets is None:
+            km = draw_keep_mask(model, generator, self.bt, self.meta.frames,
+                                *self.im_size, self.device)
+        else:
+            km = _keep_masks(model, nets, self.bt, self.meta.frames,
+                             self.im_size, generator, self.device)
+        return self.split_mask(km, 0 if nets is None else 1)
+
+    @staticmethod
+    def split_mask(km, axis: int):
+        return None if km is None else dist.split_columns(km, axis, fill=True)
+
+    def prepare(self, x, w, dtype):
+        """The nets' input in their dtype: the 'Video*' crop, then (unless
+        the protocol skips it) the batch standardisation over the whole
+        batch."""
+        x = _video_crop(x, self.cfg.model).to(dtype)
+        if self.cfg.standardize:
+            x = _batch_standardize(x, w.to(dtype), across_ranks=True)
+        return x
+
+    def loss(self, model, params, x, y, w, denom, keep_mask=None,
+             generator=None):
+        """(loss, hits): one net's training loss on its rows of a batch
+        (prepared) whose weight sum is ``denom``, and its weighted count of
+        correct predictions."""
         cfg = self.cfg
-        x = _video_crop(x, cfg.model)
-        if cfg.standardize:
-            x = _batch_standardize(x, w)
         logits = functional_call(
             model, params, (x,),
             dict(train=True, generator=generator, keep_mask=keep_mask))
         if cfg.loss == "mse":
             # soft labels y (B, C); torch MSELoss's mean over the classes
             per = torch.mean((logits - y) ** 2, dim=-1)
-            loss = (per * w).sum() / w.sum().clamp_min(1.0)
+            loss = (per * w).sum() / denom
             hit = logits.argmax(-1) == y.argmax(-1)
         else:
-            loss = masked_ce(logits, y, w)
+            loss = masked_ce(logits, y, w, denom)
             hit = logits.argmax(-1) == y
         return loss, (hit.float() * w).sum()
 
@@ -371,23 +427,28 @@ def train_synset(generator, syn_images, syn_labels, meta, cfg: EvalConfig,
     corrects, counts = [], []
     for step in range(tr.steps):
         idx = batch_idx[step]
-        w = (idx >= 0).float()
-        x, y = tr.batch(idx.clamp_min(0), generator,
-                        None if draws is None or draws.slots is None
-                        else draws.slots[step])
+        x, y, w = tr.batch(idx, generator,
+                           None if draws is None or draws.slots is None
+                           else draws.slots[step])
+        km = (tr.keep_mask(model, generator) if keep_masks is None else
+              tr.split_mask(torch.as_tensor(keep_masks[step],
+                                            device=tr.device), 0))
+        x = tr.prepare(x, w, theta.dtype)
         theta.requires_grad_(True)
-        loss, hits = tr.loss(model, layout.unflatten(theta), x, y, w,
-                             None if keep_masks is None else keep_masks[step],
-                             generator)
+        denom = plan_denoms(idx)
+        loss, hits = tr.loss(model, layout.unflatten(theta), x, y, w, denom,
+                             km, generator)
         (grad,) = torch.autograd.grad(loss, theta)
+        dist.all_reduce_(grad)
         with torch.no_grad():
             theta, mom, adam_v, ema = tr.update(step, theta.detach(), grad,
                                                 mom, adam_v, ema)
             if step >= tr.steps - tr.nb:
                 corrects.append(hits.detach())
-                counts.append(w.sum())
+                counts.append((idx >= 0).sum())
     theta = tr.final(theta, ema)
-    acc_train = float(torch.stack(corrects).sum() / torch.stack(counts).sum())
+    correct = dist.all_reduce_(torch.stack(corrects).sum())
+    acc_train = float(correct / torch.stack(counts).sum())
     return theta, model, acc_train
 
 
@@ -433,8 +494,8 @@ def train_synsets(generator, num_nets: int, syn_images, syn_labels, meta,
     groups = net_groups(num_nets, tr.bt,
                         model.clip_elements(tr.meta.frames, *tr.im_size))
 
-    def net_loss(params, x, y, w, km):
-        return tr.loss(model, params, x, y, w, km)
+    def net_loss(params, x, y, w, denom, km):
+        return tr.loss(model, params, x, y, w, denom, km)
 
     unflatten = torch.func.vmap(layout.unflatten)
     flatten = torch.func.vmap(layout.flatten)
@@ -442,17 +503,18 @@ def train_synsets(generator, num_nets: int, syn_images, syn_labels, meta,
     counts = torch.zeros(num_nets, device=tr.device)
     for step in range(tr.steps):
         idx = batch_idx[step]
-        w = (idx >= 0).float()
         slot = None if draws is None or draws[0].slots is None else [
             np.stack([np.asarray(d.slots[step][k]) for d in draws])
             for k in range(3)]
-        x, y = tr.batch(idx.clamp_min(0), generator, slot)
+        x, y, w = tr.batch(idx, generator, slot)
         if keep_masks is not None:
-            km = torch.stack([torch.as_tensor(m[step], device=tr.device)
-                              for m in keep_masks])
+            km = tr.split_mask(torch.stack([
+                torch.as_tensor(m[step], device=tr.device)
+                for m in keep_masks]), 1)
         else:
-            km = _keep_masks(model, num_nets, tr.bt, tr.meta.frames,
-                             tr.im_size, generator, tr.device)
+            km = tr.keep_mask(model, generator, num_nets)
+        x = tr.prepare(x, w, theta.dtype)
+        denom = plan_denoms(idx)
         hits = []
         for g in groups:
             # the update is elementwise, so each group's nets take theirs
@@ -460,11 +522,12 @@ def train_synsets(generator, num_nets: int, syn_images, syn_labels, meta,
             # VideoConvNetLSTMs hold 6.4 GB a copy of θ)
             per_param, (_, hit) = torch.func.vmap(
                 torch.func.grad_and_value(net_loss, has_aux=True),
-                in_dims=(0, 0, 0, 0, None if km is None else 0))(
-                unflatten(theta[g]), x[g], y[g], w[g],
+                in_dims=(0, 0, 0, 0, 0, None if km is None else 0))(
+                unflatten(theta[g]), x[g], y[g], w[g], denom[g],
                 None if km is None else km[g])
             grad = flatten(per_param)
             del per_param
+            dist.all_reduce_(grad)
             with torch.no_grad():
                 bufs = (theta, mom, adam_v, ema)
                 new = tr.update(step, theta[g], grad,
@@ -476,8 +539,9 @@ def train_synsets(generator, num_nets: int, syn_images, syn_labels, meta,
             hits.append(hit)
         if step >= tr.steps - tr.nb:
             corrects += torch.cat(hits)
-            counts += w.sum(1)
+            counts += (idx >= 0).sum(1)
     theta = tr.final(theta, ema)
+    dist.all_reduce_(corrects)
     return theta, model, (corrects / counts).tolist()
 
 
@@ -500,15 +564,25 @@ def _stack_test_batches(clips: np.ndarray, labels: np.ndarray,
             weights.reshape(nb, batch))
 
 
+def _split_tests() -> bool:
+    """Whether the test batches are split over the ranks: when the world
+    size divides ``TEST_BATCH`` (JAX evaluate.py:424)."""
+    n = dist.world_size()
+    return n > 1 and TEST_BATCH % n == 0
+
+
 def sample_test_batches(data: VideoData, cfg: EvalConfig,
                         test_rng: np.random.Generator, device) -> List:
     """Draw ``test_repeats`` sets of random temporal crops as uint8 batch
     tensors on ``device``, shared by every net of one evaluation point
-    (evaluate.py:413-435)."""
+    (evaluate.py:413-435); this rank's rows of each batch when they are
+    split over the ranks."""
     batches = []
     for _ in range(cfg.test_repeats):
         clips = data.test.sample_clips(test_rng, flip=data.meta.frames > 1)
         cb, lb, wb = _stack_test_batches(clips, data.test.labels)
+        if _split_tests():
+            cb, lb, wb = (dist.split_columns(a, 1) for a in (cb, lb, wb))
         batches.append((torch.from_numpy(cb).to(device),
                         torch.from_numpy(lb).to(device).long(),
                         torch.from_numpy(wb).to(device)))
@@ -526,6 +600,7 @@ def run_test_pass(model, theta, meta, cfg: EvalConfig, test_batches):
     batched forward of all nets (``vtest``, evaluate.py:553-561), in
     ``net_groups``."""
     layout = layout_for(model)
+    split = _split_tests()
     image_net = not is_video_model(cfg.model)
     batched = theta.dim() == 2
     thetas = theta if batched else theta[None]
@@ -542,11 +617,11 @@ def run_test_pass(model, theta, meta, cfg: EvalConfig, test_batches):
     pc_cnt = torch.zeros(nets, meta.num_classes, device=dev)
     for clips, labels, weights in test_batches:
         for x_u8, y, wt in zip(clips, labels, weights):
-            x = normalize_u8(x_u8, meta.mean, meta.std)
+            x = normalize_u8(x_u8, meta.mean, meta.std).to(thetas.dtype)
             if image_net and x.dim() == 5:
                 x = x[:, 0]  # image models: drop the singleton frame axis
             x = _video_crop(x, cfg.model)
-            x = _batch_standardize(x, wt)
+            x = _batch_standardize(x, wt, across_ranks=split)
             if batched:
                 logits = torch.cat([torch.func.vmap(logits_of, in_dims=(0, None))(
                     thetas[g], x) for g in groups])
@@ -558,6 +633,8 @@ def run_test_pass(model, theta, meta, cfg: EvalConfig, test_batches):
                 c, n = per_class_correct(logits[e], y, meta.num_classes, wt)
                 pc_corr[e] += c
                 pc_cnt[e] += n
+    if split:
+        dist.all_reduce_tensors_([tot, pc_corr, pc_cnt])
     tot, pc_corr, pc_cnt = (t.double().cpu().numpy()
                             for t in (tot, pc_corr, pc_cnt))
     out = [(float(tot[e, 0] / tot[e, 3]), float(tot[e, 1] / tot[e, 3]),

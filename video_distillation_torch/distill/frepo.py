@@ -34,6 +34,16 @@ more than 500 prototypes); a ``torch.Generator`` draws the hallucinator
 choices, the dropout masks and re-initialised nets; ``proto_step`` and
 ``ModelPool.train_step`` take them as arguments, so a test gives both
 packages the same ones.
+
+Data parallelism (``parallel/dist.py``): the real batch is padded with -1
+and split over the ranks (the JAX ``pad_and_shard_plan``), each rank
+embeds its share and the KRR loss divides by the whole batch's count; the
+prototypes are composed and embedded on every rank and the KRR solve runs
+on those replicated features; the proto gradients are summed over the
+ranks after each rank's loss share (its rows' error plus the label margin
+over n). The pool step splits its batch over the ranks when the world size
+divides it (the JAX step's ``data_sharding`` of the prototypes) and sums
+the gradients; otherwise every rank takes rank 0's gradient.
 """
 
 from __future__ import annotations
@@ -49,7 +59,9 @@ from torch.func import functional_call
 from ..data.store import ClipStore, normalize_u8
 from ..models.registry import path_model
 from ..ops.losses import lb_margin_th
+from ..parallel import dist
 from .dm import REAL_CHUNK, embed, norm_stats, real_chunk, real_features
+from .mtt import draw_keep_mask, plan_denoms
 from .params import layout_for
 from .s2d import S2DConfig, hallucinate, hallucinate_frozen, init_s2d_state
 
@@ -226,7 +238,9 @@ class ModelPool:
                    keep_mask=None):
         """One Adam step of net ``idx`` on (at most 500 rows of) the
         prototypes, in train mode; resets the net after
-        ``max_online_updates`` steps. Returns the MSE loss."""
+        ``max_online_updates`` steps. The rows are split over the ranks
+        when the world size divides them; the dropout keep-mask is drawn
+        for all of them first. Returns the MSE loss."""
         cfg, el = self.cfg, self.elements[idx]
         n = x_syn.shape[0]
         if n > POOL_BATCH:
@@ -234,13 +248,29 @@ class ModelPool:
                                                 replace=False),
                                   device=x_syn.device)
             x_syn, y_syn = x_syn[sel], y_syn[sel]
+        if keep_mask is None:
+            keep_mask = draw_keep_mask(self.model, generator, x_syn.shape[0],
+                                       *x_syn.shape[1:4], x_syn.device)
+        count = y_syn.numel()
+        split = x_syn.shape[0] % dist.world_size() == 0
+        if split:
+            x_syn, y_syn = dist.split_columns(x_syn, 0), dist.split_columns(
+                y_syn, 0)
+            if keep_mask is not None:
+                keep_mask = dist.split_columns(
+                    torch.as_tensor(keep_mask, device=x_syn.device), 0)
         theta = el["params"].detach().requires_grad_(True)
         out = functional_call(self.model, self.layout.unflatten(theta),
                               (x_syn.to(self.dtype),),
                               dict(train=True, generator=generator,
                                    keep_mask=keep_mask))
-        loss = torch.mean((out - y_syn.to(out.dtype)) ** 2)
+        loss = torch.sum((out - y_syn.to(out.dtype)) ** 2) / count
         (g,) = torch.autograd.grad(loss, theta)
+        loss = loss.detach()
+        if split:
+            dist.all_reduce_tensors_([g, loss])
+        else:  # replicated: rank 0's gradient keeps the replicas equal
+            dist.broadcast_tensors_([g, loss])
         lr = pool_lr(cfg.lr_net, cfg.max_online_updates, el["count"],
                      theta.device)
         el["params"], el["m"], el["v"] = adam_update(
@@ -249,7 +279,7 @@ class ModelPool:
         el["step"] += 1
         if el["step"] >= cfg.max_online_updates:
             self.elements[idx] = self._fresh(generator, 0)
-        return loss.detach()
+        return loss
 
 
 class FRePoTrainer:
@@ -261,7 +291,7 @@ class FRePoTrainer:
     ``step(generator, np_rng)`` runs one outer iteration. ``generator``
     draws the initial state and then the pool's nets; ``dtype`` (fp32, or
     fp64 for a reference run on the CPU) is the whole step's;
-    ``shard_store`` raises (ROADMAP A.16)."""
+    ``shard_store`` row-shards the clip store over the ranks."""
 
     def __init__(self, store: ClipStore, model_name: str, cfg: FRePoConfig,
                  generator=None, path_static: Optional[np.ndarray] = None,
@@ -276,7 +306,6 @@ class FRePoTrainer:
         self.store, self.cfg, self.dtype = store, cfg, dtype
         self.device = torch.device(device)
         self.num_classes = cfg.num_classes
-        # row-sharding the store is ROADMAP A.16: this raises naming it
         self.clips = store.device_clips(self.device, sharded=shard_store)
         self.model = path_model(model_name, meta.channel, cfg.num_classes,
                                 tuple(meta.im_size), cfg.frames,
@@ -382,21 +411,30 @@ class FRePoTrainer:
     def proto_step(self, params, real_idx, hal_choice=None):
         """One Adam step of the synthetic state against the pool net
         ``params`` (torch layout) and the real clips ``real_idx`` (1-D, on
-        the device) (frepo.py:302-335). Returns (loss, ln, lb, grads)."""
+        the device; this rank embeds its columns of it, padded with -1)
+        (frepo.py:302-335). Returns (loss, ln, lb, grads)."""
         cfg = self.cfg
-        feat_tar = self.real_feats(params, real_idx)
-        y_tar = self.y_train[real_idx]
+        mine = dist.pad_and_split_plan(real_idx)[1]
+        safe = mine.clamp_min(0)
+        feat_tar = self.real_feats(params, safe)
+        y_tar = self.y_train[safe]
         trained = [k for k in self.state if k != "y_syn" or cfg.learn_label]
         leaf = {k: _tree_map(lambda t: t.detach().requires_grad_(k in trained),
                              v) for k, v in self.state.items()}
         x_syn = self.compose(leaf, hal_choice)
         feat_syn = embed(self.model, params, x_syn)
         pred = nfr(feat_tar, feat_syn, leaf["y_syn"], cfg.reg)
-        ln = torch.sum((pred - y_tar.to(pred.dtype)) ** 2, dim=-1).mean()
+        sq = torch.sum((pred - y_tar.to(pred.dtype)) ** 2, dim=-1)
+        # this rank's rows' share of the masked mean (frepo.py:323-324)
+        ln = (sq * (mine >= 0).to(sq.dtype)).sum() / plan_denoms(
+            real_idx).to(sq.dtype)
         lb = lb_margin_th(leaf["y_syn"]).mean()
-        loss = ln + lb
         inputs = [x for k in trained for x in _leaves(leaf[k])]
-        got = iter(torch.autograd.grad(loss, inputs))
+        got = torch.autograd.grad(ln + dist.share(lb), inputs)
+        ln = ln.detach()
+        dist.all_reduce_tensors_(list(got) + [ln])
+        loss = ln + lb
+        got = iter(got)
         grads = {k: (_unflatten_like(leaf[k], got) if k in trained
                      else torch.zeros_like(leaf[k])) for k in leaf}
         count = self.opt["count"]

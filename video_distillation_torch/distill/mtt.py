@@ -27,6 +27,13 @@ Batch plan semantics: the reference pops permutation chunks from the END
 of a per-iteration chunk list (distill_baseline.py:231-241), refilling
 when empty; ragged remainder chunks are padded with -1 and masked in the
 CE mean.
+
+Data parallelism (``parallel/dist.py``): every rank holds the whole plan,
+draws the slots and dropout keep-masks of the whole plan, and takes its
+columns of the -1-padded plan; the CE means divide by the plan's global
+weight sums; each inner gradient is summed over the ranks through
+``dist.reduced``, whose backward sums the cotangents again; each rank
+backpropagates the grand loss over n and the outer gradients are summed.
 """
 
 from __future__ import annotations
@@ -40,9 +47,10 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..models.registry import path_model
+from ..parallel import dist
 from .params import layout_for
-from .s2d import (S2DConfig, distill_slots, grad_leaves, hallucinate,
-                  momentum_sgd, state_grads)
+from .s2d import (S2DConfig, distill_slots, grad_leaves, grad_tensors,
+                  hallucinate, momentum_sgd, state_grads)
 
 # float64 is for references only (chip_smoke.py's parity phase)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -76,13 +84,38 @@ def take_rows(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return mat[idx]
 
 
-def masked_ce(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
+def masked_ce(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+              denom: Optional[torch.Tensor] = None):
     """Mean cross entropy over the rows with weight 1 (plan padding has 0),
-    in fp32 for bf16 or fp32 logits (mtt.py:171-185), in fp64 for fp64."""
+    in fp32 for bf16 or fp32 logits (mtt.py:171-185), in fp64 for fp64.
+    ``denom`` replaces the weight sum: a rank's share of a batch split over
+    the ranks divides by the whole batch's."""
     logp = F.log_softmax(logits.to(torch.promote_types(logits.dtype,
                                                        torch.float32)), dim=-1)
     pick = -logp.gather(1, y[:, None])[:, 0]
-    return (pick * w).sum() / w.sum().clamp_min(1.0)
+    return (pick * w).sum() / (w.sum().clamp_min(1.0) if denom is None
+                               else denom)
+
+
+def plan_denoms(plan: torch.Tensor) -> torch.Tensor:
+    """The weight sums of a plan's rows (at least 1): the denominators of
+    their masked means, whichever columns a rank computes."""
+    return (plan >= 0).sum(-1).float().clamp_min(1.0)
+
+
+def draw_keep_mask(model, generator, batch: int, frames: int, h: int, w: int,
+                   device):
+    """A (batch, T', H', W', C) dropout keep-mask in the JAX layout for
+    ``batch`` clips of (frames, h, w), drawn by the generator call the
+    model's own forward makes, so it equals the mask the forward would
+    draw; None for a model without dropout."""
+    rate = getattr(model, "dropout_rate", 0.0)
+    if rate <= 0:
+        return None
+    t, hh, ww, c = model.keep_mask_shape(frames, h, w)
+    keep = torch.rand((batch, c, t, hh, ww), generator=generator,
+                      device=device) < 1.0 - rate
+    return keep.permute(0, 2, 3, 4, 1)
 
 
 class _RematStep(torch.autograd.Function):
@@ -96,29 +129,32 @@ class _RematStep(torch.autograd.Function):
     would give the recompute another mask."""
 
     @staticmethod
-    def forward(ctx, theta, x, lr, y, w, keep_mask, core):
+    def forward(ctx, theta, x, lr, y, w, keep_mask, denom, core):
         with torch.enable_grad():
             th = theta.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(core.ce(th, x.detach(), y, w,
-                                               keep_mask), th)
+                                               keep_mask, denom=denom), th)
+        dist.all_reduce_(g)
         ctx.core = core
-        ctx.save_for_backward(theta, x, lr, y, w, keep_mask)
+        ctx.save_for_backward(theta, x, lr, y, w, keep_mask, denom)
         return theta - lr * g
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, v):
-        theta, x, lr, y, w, keep_mask = ctx.saved_tensors
+        theta, x, lr, y, w, keep_mask, denom = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         with torch.enable_grad():
             th = theta.detach().requires_grad_(True)
             xx = x.detach().requires_grad_(need[1])
             lr_ = lr.detach().requires_grad_(need[2])
-            (g,) = torch.autograd.grad(ctx.core.ce(th, xx, y, w, keep_mask),
-                                       th, create_graph=True)
+            (g,) = torch.autograd.grad(
+                ctx.core.ce(th, xx, y, w, keep_mask, denom=denom), th,
+                create_graph=True)
             wrt = [t for t, n in zip((th, xx, lr_), need) if n]
-            grads = iter(torch.autograd.grad(th - lr_ * g, wrt, v))
-        return tuple(next(grads) if n else None for n in need) + (None,) * 4
+            grads = iter(torch.autograd.grad(th - lr_ * dist.reduced(g), wrt,
+                                             v))
+        return tuple(next(grads) if n else None for n in need) + (None,) * 5
 
 
 class MTTCore:
@@ -143,49 +179,55 @@ class MTTCore:
         # 112x112x16 without an fp32 head stage (mtt.py:194-203)
         self.fp32_stages = ("head",) if self.cdt == torch.bfloat16 else ()
 
-    def ce(self, theta, x, y, w, keep_mask=None, generator=None):
+    def ce(self, theta, x, y, w, keep_mask=None, generator=None, denom=None):
         params = {k: v.to(self.cdt)
                   for k, v in self.layout.unflatten(theta).items()}
         logits = functional_call(
             self.model, params, (x.to(self.cdt),),
             dict(train=True, keep_mask=keep_mask, generator=generator,
                  fp32_stages=self.fp32_stages))
-        return masked_ce(logits, y, w)
+        return masked_ce(logits, y, w, denom)
 
-    def draw_keep_mask(self, generator, x):
-        """One inner step's dropout keep-mask for the batch ``x`` in the JAX
-        layout, from the same generator call the model's own draw makes (so
-        a drawn mask equals the one the forward would draw); None for a
-        model without dropout."""
-        rate = getattr(self.model, "dropout_rate", 0.0)
-        if rate <= 0:
-            return None
-        t, h, w, c = self.model.keep_mask_shape(*x.shape[1:4])
-        keep = torch.rand((x.shape[0], c, t, h, w), generator=generator,
-                          device=x.device) < 1.0 - rate
-        return keep.permute(0, 2, 3, 4, 1)
+    def split_plan(self, plan, keep_masks, generator, clip_shape):
+        """This rank's share of a (S, B) plan: (its columns of the
+        -1-padded plan, their keep-masks, the steps' global weight sums).
+        The keep-masks of the whole plan, handed in or drawn step by step
+        from ``generator`` (the calls the forwards would make), are split
+        as the plan is; None for a model without dropout."""
+        if keep_masks is None:
+            drawn = [draw_keep_mask(self.model, generator, plan.shape[1],
+                                    *clip_shape, plan.device)
+                     for _ in range(plan.shape[0])]
+            keep_masks = None if drawn[0] is None else torch.stack(drawn)
+        if keep_masks is not None:
+            keep_masks = dist.split_columns(
+                torch.as_tensor(keep_masks, device=plan.device), axis=1,
+                fill=True)
+        return dist.pad_and_split_plan(plan)[1], keep_masks, plan_denoms(plan)
 
     def unroll(self, theta_start, theta_target, syn_lr, batches_x, batches_y,
-               batches_w, keep_masks=None, generator=None):
+               batches_w, keep_masks=None, generator=None, denoms=None):
         """batches_x: (S, B, F, H, W, C), already in normalised space.
-        ``keep_masks``: optional per-step dropout keep-masks (S, ...) in
-        the JAX layout; under 'remat' a step without one draws it from
-        ``generator`` before its region. Returns (grand_loss, param_loss,
-        param_dist)."""
+        ``keep_masks``: the per-step dropout keep-masks (S, ...) in the JAX
+        layout (``split_plan``'s), None for a model without dropout; under
+        'remat' each step's recompute applies its step's mask. ``denoms``:
+        the steps' global weight sums, where B is this rank's share of the
+        batch; each inner gradient is summed over the ranks. Returns
+        (grand_loss, param_loss, param_dist)."""
         remat = self.second_order == "remat"
         theta = theta_start.detach().requires_grad_(not remat)
         for s in range(self.syn_steps):
             km = None if keep_masks is None else keep_masks[s]
+            denom = None if denoms is None else denoms[s]
             if remat:
-                if km is None:
-                    km = self.draw_keep_mask(generator, batches_x[s])
                 theta = _RematStep.apply(theta, batches_x[s], syn_lr,
-                                         batches_y[s], batches_w[s], km, self)
+                                         batches_y[s], batches_w[s], km,
+                                         denom, self)
                 continue
             ce = self.ce(theta, batches_x[s], batches_y[s], batches_w[s], km,
-                         generator)
+                         generator, denom)
             (g,) = torch.autograd.grad(ce, theta, create_graph=True)
-            theta = theta - syn_lr * g
+            theta = theta - syn_lr * dist.reduced(g)
         param_loss = ((theta - theta_target) ** 2).sum()
         param_dist = ((theta_start - theta_target) ** 2).sum()
         return param_loss / param_dist, param_loss, param_dist
@@ -215,24 +257,29 @@ class MTTStep:
     def loss(self, syn_images, syn_labels, syn_lr, theta_start, theta_target,
              plan, generator=None, keep_masks=None):
         """Grand loss (and its two terms) as a differentiable function of
-        the synthetic images and syn_lr."""
+        the synthetic images and syn_lr: this rank's share, whose gradient
+        summed over the ranks is the loss's."""
+        plan, keep_masks, denoms = self.core.split_plan(
+            plan, keep_masks, generator, syn_images.shape[1:4])
         w = (plan >= 0).float()
         safe = plan.clamp_min(0).long()
         syn2d = syn_images.to(self.core.cdt).reshape(syn_images.shape[0], -1)
         batches_x = take_rows(syn2d, safe.reshape(-1)).reshape(
             tuple(safe.shape) + tuple(syn_images.shape[1:]))
         return self.core.unroll(theta_start, theta_target, syn_lr, batches_x,
-                                syn_labels[safe], w, keep_masks, generator)
+                                syn_labels[safe], w, keep_masks, generator,
+                                denoms)
 
     def __call__(self, generator, syn_images, syn_labels, syn_lr, mom_img,
                  mom_lr, theta_start, theta_target, plan, keep_masks=None):
         syn = syn_images.detach().requires_grad_(True)
-        lr = torch.as_tensor(syn_lr, dtype=torch.float32,
+        lr = torch.as_tensor(syn_lr, dtype=_lr_dtype(theta_start),
                              device=syn.device).detach().requires_grad_(True)
         loss, ploss, pdist = self.loss(syn, syn_labels, lr, theta_start,
                                        theta_target, plan, generator,
                                        keep_masks)
-        g_img, g_lr = torch.autograd.grad(loss, (syn, lr))
+        g_img, g_lr = torch.autograd.grad(dist.share(loss), (syn, lr))
+        dist.all_reduce_tensors_([g_img, g_lr])
         with torch.no_grad():
             mom_img = 0.5 * mom_img + g_img
             new_syn = syn_images - self.lr_img * mom_img
@@ -287,10 +334,16 @@ class S2DMTTStep:
     def loss(self, state, syn_lr, theta_start, theta_target, plan,
              generator=None, draws=None, keep_masks=None):
         """Grand loss (and its two terms) as a differentiable function of
-        the S2D state and syn_lr."""
+        the S2D state and syn_lr: this rank's share, whose gradient summed
+        over the ranks is the loss's. Every rank draws the slots of the
+        whole plan and composes its own columns' clips."""
         cfg = self.s2d_cfg
+        labels, s_idx, d_idx = (
+            dist.split_columns(t) for t in
+            s2d_slot_draws(plan, cfg, generator, draws))
+        plan, keep_masks, denoms = self.core.split_plan(
+            plan, keep_masks, generator, (cfg.frames, *cfg.im_size))
         w = (plan >= 0).float()
-        labels, s_idx, d_idx = s2d_slot_draws(plan, cfg, generator, draws)
         st = state["static"]
         if not self.hyper.train_static:
             # frozen static: cut its whole backward chain (dgrad of the
@@ -305,17 +358,19 @@ class S2DMTTStep:
                              dtype=self.core.cdt)
         batches_x = videos.reshape((self.syn_steps, -1) + videos.shape[1:])
         return self.core.unroll(theta_start, theta_target, syn_lr, batches_x,
-                                labels, w, keep_masks, generator)
+                                labels, w, keep_masks, generator, denoms)
 
     def __call__(self, generator, state, syn_lr, moms, mom_lr, theta_start,
                  theta_target, plan, draws=None, keep_masks=None):
         hp = self.hyper
         leaf = grad_leaves(state, hp.train_static)
-        lr = torch.as_tensor(syn_lr, dtype=torch.float32,
+        lr = torch.as_tensor(syn_lr, dtype=_lr_dtype(theta_start),
                              device=leaf["dynamic"].device).detach().requires_grad_(True)
         loss, ploss, pdist = self.loss(leaf, lr, theta_start, theta_target,
                                        plan, generator, draws, keep_masks)
-        g, (g_lr,) = state_grads(loss, leaf, hp.train_static, extra=(lr,))
+        g, (g_lr,) = state_grads(dist.share(loss), leaf, hp.train_static,
+                                 extra=(lr,))
+        dist.all_reduce_tensors_(grad_tensors(g) + [g_lr])
         g["syn_lr"] = g_lr
         new_state, new_moms = momentum_sgd(
             state, moms, g, {"static": hp.lr_static, "dynamic": hp.lr_dynamic,
@@ -325,6 +380,12 @@ class S2DMTTStep:
                                         hp.lr_lr, 0.9)
         return (new_state, new_lr, new_moms, mom_lr, loss.detach(),
                 ploss.detach(), pdist.detach(), g)
+
+
+def _lr_dtype(theta):
+    """The learnable lr's dtype in a step: fp32, or fp64 in an fp64
+    reference step (an fp32 leaf would round its gradient to fp32)."""
+    return torch.promote_types(theta.dtype, torch.float32)
 
 
 @torch.no_grad()

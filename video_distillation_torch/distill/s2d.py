@@ -96,6 +96,12 @@ def state_grads(loss, leaf, train_static: bool, extra: Sequence = ()):
     return g, list(grads[1:1 + len(extra)])
 
 
+def grad_tensors(g):
+    """The tensors of a ``state_grads`` dict, in a fixed order."""
+    return ([g["dynamic"]] + [h[k] for h in g["hals"] for k in sorted(h)]
+            + ([g["static"]] if "static" in g else []))
+
+
 def _zero_if_none(g, like):
     return torch.zeros_like(like) if g is None else g
 

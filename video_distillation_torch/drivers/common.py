@@ -3,6 +3,12 @@
 Port of ``video_distillation_tpu/drivers/common.py``: evaluate num_eval
 fresh nets per model of the eval pool, track the best mean accuracy, save
 artifacts on a new best (the reference's ``distill_baseline.py:146-189``).
+
+Every driver runs under ``torchrun --nproc_per_node=N -m
+video_distillation_torch.drivers.<name>``: ``parse_config_args`` joins the
+launch's process group (``parallel.init_distributed``); every rank takes
+part in every step and evaluation, and only the coordinator writes logs,
+checkpoints and artifacts.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from ..data.synthetic import (make_synthetic_video_data,
                               synthetic_kwargs_from_name)
 from ..distill.evaluate import EvalConfig, evaluate_many
 from ..models.registry import get_eval_pool
+from ..parallel import init_distributed
 from ..utils.logging import MetricLogger
 
 
@@ -43,7 +50,10 @@ def parse_config_args(description: str, argv=None,
     """Field-driven CLI over a config dataclass: any --<field> overrides its
     default (mirrors the reference sh/ wrappers passing "$@" through to
     argparse). For DistillConfig, --preset first picks the named config.
-    Unknown flags are argparse errors, never silently dropped."""
+    Unknown flags are argparse errors, never silently dropped. Then joins
+    the launch's process group, if ``torchrun`` started this process, on
+    the config's device (as the JAX driver calls ``init_distributed``
+    first)."""
     p = argparse.ArgumentParser(description=description)
     presets = config_cls is DistillConfig
     if presets:
@@ -65,6 +75,7 @@ def parse_config_args(description: str, argv=None,
         v = getattr(args, f.name)
         if v is not None:
             setattr(cfg, f.name, v)
+    init_distributed(cfg.device)
     return cfg
 
 

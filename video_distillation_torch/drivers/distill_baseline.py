@@ -33,6 +33,7 @@ from ..config import DistillConfig
 from ..distill.buffer import load_buffers
 from ..distill.dm import DMState, init_synthetic_raw, make_dm_trainer
 from ..distill.mtt import ExpertSampler, MTTStep, make_batch_plan
+from ..parallel import check_mesh_shape
 from ..utils.checkpoint import restore_state, save_artifact, save_state
 from ..utils.device import resolve_device, step_generator, use_exact_fp32
 from ..utils.logging import MetricLogger, StepTimer
@@ -73,6 +74,7 @@ def run_dm(cfg: DistillConfig, data, logger: MetricLogger,
            step_hook: Optional[Callable] = None) -> DMState:
     """DM on the raw tensor; returns the final state. ``step_hook(it,
     (state, loss))``, if given, is called after every step."""
+    check_mesh_shape(cfg.mesh_shape)
     device = resolve_device(cfg.device)
     use_exact_fp32()
     rng = np.random.default_rng(cfg.seed)
@@ -113,6 +115,7 @@ def run_mtt(cfg: DistillConfig, data, logger: MetricLogger,
     """MTT on the raw tensor; returns (syn_images, labels, syn_lr).
     ``step_hook(it, out)``, if given, is called after every outer step with
     ``MTTStep``'s outputs."""
+    check_mesh_shape(cfg.mesh_shape)
     device = resolve_device(cfg.device)
     use_exact_fp32()
     meta = data.meta

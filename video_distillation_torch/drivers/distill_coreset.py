@@ -11,6 +11,11 @@ class are chosen in the embedding space of a frozen random net drawn from
 ``--seed``, then ``num_eval`` fresh nets of each model of the
 ``--eval_mode`` pool are trained on them at ``--lr_net`` and tested;
 accuracy and its spread are logged per model.
+
+Under ``torchrun`` every rank selects the whole coreset (the JAX driver
+takes no mesh for it, so more ranks gain nothing there) and takes rank
+0's; the evaluation is split over the ranks as every evaluation is; rank 0
+logs.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from ..config import DistillConfig
 from ..distill.coreset import SELECTORS, select_coreset
 from ..distill.evaluate import EvalConfig, evaluate_many
 from ..models.registry import get_eval_pool
+from ..parallel import broadcast_tensors_, init_distributed
 from ..utils.device import resolve_device, step_generator, use_exact_fp32
 from ..utils.logging import MetricLogger
 from .common import EVAL_STREAM, load_data
@@ -51,6 +57,7 @@ def main(argv=None, logger: Optional[MetricLogger] = None):
     """Select the coreset and evaluate it; returns (syn_images, labels,
     {model: (mean accuracy, std)})."""
     args = parse_args(argv)
+    init_distributed(args.device)
     device = resolve_device(args.device)
     use_exact_fp32()
     cfg = DistillConfig(dataset=args.dataset, model=args.model, ipc=args.ipc,
@@ -63,6 +70,7 @@ def main(argv=None, logger: Optional[MetricLogger] = None):
     syn, labels = select_coreset(step_generator(args.seed, 0, device),
                                  data.train, args.model, args.ipc,
                                  args.method, cfg.frames, device=device)
+    broadcast_tensors_([syn])  # one coreset on every rank
     test_rng = np.random.default_rng(args.seed + 123)
     gen = step_generator(args.seed, EVAL_STREAM, device)
     accs = {}

@@ -34,6 +34,7 @@ from ..distill.evaluate import EvalConfig, evaluate_many
 from ..distill.frepo import FRePoConfig, FRePoTrainer, krr_evaluate
 from ..distill.params import hal_to_jax
 from ..models.registry import get_eval_pool
+from ..parallel import init_distributed
 from ..utils.checkpoint import (restore_state, save_artifact,
                                 save_pytree_artifact, save_state)
 from ..utils.device import resolve_device, step_generator, use_exact_fp32
@@ -66,8 +67,7 @@ def parse_args(argv=None):
                    help="eval pool selector; each pool model is evaluated "
                         "per eval step")
     p.add_argument("--shard_store", action="store_true",
-                   help="row-shard the uint8 clip store (ROADMAP A.16: "
-                        "raises)")
+                   help="row-shard the uint8 clip store over the ranks")
     p.add_argument("--data_path", default="data")
     p.add_argument("--save_path", default="./logged_files")
     p.add_argument("--frames", type=int, default=16)
@@ -88,6 +88,7 @@ def main(argv=None, logger: Optional[MetricLogger] = None,
     'np_rng', 'best_acc'}``. ``step_hook(it, metrics)``, if given, is called
     at the end of every iteration, after its evaluation and checkpoint."""
     args = parse_args(argv)
+    init_distributed(args.device)
     device = resolve_device(args.device)
     use_exact_fp32()
     dcfg = DistillConfig(dataset=args.dataset, data_path=args.data_path,

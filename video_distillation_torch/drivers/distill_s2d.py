@@ -38,6 +38,7 @@ from ..distill.buffer import load_buffers
 from ..distill.dm import make_s2d_dm_trainer
 from ..distill.mtt import ExpertSampler, S2DHyper, S2DMTTStep, make_batch_plan
 from ..distill.params import hal_to_jax
+from ..parallel import check_mesh_shape
 from ..distill.s2d import (S2DConfig, compose_synthetic, init_s2d_momentum,
                            init_s2d_state)
 from ..utils.checkpoint import (restore_state, save_artifact,
@@ -69,6 +70,7 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
     """Distil; returns {'state', 'syn_lr'}. ``step_hook(it, out)``, if
     given, is called after every outer step with the step's outputs
     (``S2DMTTStep``'s, or DM's ``(state, moms, loss)``)."""
+    check_mesh_shape(cfg.mesh_shape)
     device = resolve_device(cfg.device)
     use_exact_fp32()
     if cfg.method not in ("DM", "MTT"):

@@ -13,7 +13,9 @@ reads through ``--path_static``::
         --dataset miniUCF101 --data_path data --spc 10 [--device cuda]
 
 ``get_loops`` has rows for spc 1, 5, 10, 20, 30, 40 and 50 only, so the
-default ``--spc 2`` (the JAX driver's) raises.
+default ``--spc 2`` (the JAX driver's) raises. Under ``torchrun`` every
+rank learns the whole static memory (the JAX driver takes no mesh: more
+ranks gain nothing) and rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..config import DistillConfig
 from ..data.store import ClipStore
 from ..distill.dc import make_dc_trainer
 from ..distill.dm import init_synthetic_raw
+from ..parallel import init_distributed
 from ..utils.checkpoint import save_artifact
 from ..utils.device import resolve_device, step_generator, use_exact_fp32
 from ..utils.logging import MetricLogger
@@ -71,6 +74,7 @@ def main(argv=None, logger=None) -> str:
     Iterations 0 to ``--Iteration`` run, as in the JAX driver; the loss
     is logged every 100."""
     args = parse_args(argv)
+    init_distributed(args.device)
     device = resolve_device(args.device)
     use_exact_fp32()
     data = load_data(DistillConfig(dataset=args.dataset,

@@ -123,13 +123,20 @@ def _stream():
 # plain versions (CPU path, and the yardstick the kernels are checked against)
 # ---------------------------------------------------------------------------
 
+def _acc(t):
+    """The plain versions' working dtype: fp32, as the kernels accumulate,
+    or fp64 for fp64 inputs (a reference run on the CPU)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def hal_fwd_plain(static, dynamic, weight, bias):
-    """Planar y (B, 3, F, H, W): naive broadcast + concat + conv3d in fp32,
-    cast to the dynamic input's dtype."""
+    """Planar y (B, 3, F, H, W): naive broadcast + concat + conv3d in fp32
+    (fp64 for fp64 inputs), cast to the dynamic input's dtype."""
     b, frames, h, w, _ = dynamic.shape
-    s = static.float().permute(0, 3, 1, 2).unsqueeze(2).expand(b, 3, frames, h, w)
-    x = torch.cat([s, dynamic.float().permute(0, 4, 1, 2, 3)], dim=1)
-    y = F.conv3d(x, weight.float(), bias.float(), padding=1)
+    acc = _acc(dynamic)
+    s = static.to(acc).permute(0, 3, 1, 2).unsqueeze(2).expand(b, 3, frames, h, w)
+    x = torch.cat([s, dynamic.to(acc).permute(0, 4, 1, 2, 3)], dim=1)
+    y = F.conv3d(x, weight.to(acc), bias.to(acc), padding=1)
     return y.to(dynamic.dtype)
 
 
@@ -137,24 +144,29 @@ def hal_dgrad_plain(g, weight, need_s: bool = True, need_d: bool = True):
     """(ds (B,H,W,3) | None, dd (B,F,H,W,1) | None) in ȳ's dtype, by autograd
     of the plain forward (linear in static and dynamic)."""
     b, _, frames, h, w = g.shape
+    acc = _acc(g)
     with torch.enable_grad():
-        s = torch.zeros(b, h, w, 3, device=g.device, requires_grad=True)
-        d = torch.zeros(b, frames, h, w, 1, device=g.device, requires_grad=True)
-        y = hal_fwd_plain(s, d, weight.detach().float(),
-                          torch.zeros(3, device=g.device))
-        ds, dd = torch.autograd.grad(y, (s, d), g.float())
+        s = torch.zeros(b, h, w, 3, device=g.device, dtype=acc,
+                        requires_grad=True)
+        d = torch.zeros(b, frames, h, w, 1, device=g.device, dtype=acc,
+                        requires_grad=True)
+        y = hal_fwd_plain(s, d, weight.detach().to(acc),
+                          torch.zeros(3, device=g.device, dtype=acc))
+        ds, dd = torch.autograd.grad(y, (s, d), g.to(acc))
     return (ds.to(g.dtype) if need_s else None,
             dd.to(g.dtype) if need_d else None)
 
 
 def hal_wgrad_plain(g, static, dynamic):
-    """(dweight (3,4,3,3,3), dbias (3,)) in fp32, by autograd of the plain
-    forward (linear in weight and bias)."""
+    """(dweight (3,4,3,3,3), dbias (3,)) in fp32 (fp64 for fp64 inputs),
+    by autograd of the plain forward (linear in weight and bias)."""
+    acc = _acc(g)
     with torch.enable_grad():
-        wt = torch.zeros(3, 4, 3, 3, 3, device=g.device, requires_grad=True)
-        bs = torch.zeros(3, device=g.device, requires_grad=True)
-        y = hal_fwd_plain(static.float(), dynamic.float(), wt, bs)
-        dw, db = torch.autograd.grad(y, (wt, bs), g.float())
+        wt = torch.zeros(3, 4, 3, 3, 3, device=g.device, dtype=acc,
+                         requires_grad=True)
+        bs = torch.zeros(3, device=g.device, dtype=acc, requires_grad=True)
+        y = hal_fwd_plain(static.to(acc), dynamic.to(acc), wt, bs)
+        dw, db = torch.autograd.grad(y, (wt, bs), g.to(acc))
     return dw, db
 
 

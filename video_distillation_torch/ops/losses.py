@@ -97,13 +97,12 @@ def lb_margin_th(logits):
     return -margin
 
 
-def dm_loss(feat_real, feat_syn, num_classes: int):
+def dm_loss(mean_real, feat_syn):
     """Distribution-matching loss, batched over classes.
 
-    feat_real: (C, B_r, D); feat_syn: (C, ipc, D). Equals the reference's
-    per-class python loop sum of squared mean differences
-    (distill_baseline.py:344-351) computed as one vectorised reduction.
+    mean_real: (C, D), the real features' class means; feat_syn: (C, ipc,
+    D). Equals the reference's per-class python loop sum of squared mean
+    differences (distill_baseline.py:344-351) computed as one vectorised
+    reduction.
     """
-    mean_real = feat_real.mean(dim=1)
-    mean_syn = feat_syn.mean(dim=1)
-    return torch.sum((mean_real - mean_syn) ** 2)
+    return torch.sum((mean_real - feat_syn.mean(dim=1)) ** 2)

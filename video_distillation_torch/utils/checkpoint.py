@@ -5,7 +5,9 @@ orbax: the full distillation state (S2D tensors, momenta, ``syn_lr``,
 ``mom_lr``) goes to ``step_{n}.pt`` with ``torch.save``, and the iteration
 and the host numpy RNG state to ``latest.json``, so a run resumes exactly.
 Output artifacts (``images_{it}``, ``dynamic_{it}``, ``hal_{it}``) keep the
-JAX package's ``.npy`` / ``.npz`` formats.
+JAX package's ``.npy`` / ``.npz`` formats. Under a process group only the
+coordinator (rank 0) writes (the JAX ``utils/checkpoint.py:38`` rule); the
+state it writes is replicated, so no rank gathers anything for it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import dist
 
 
 def _to_cpu(tree):
@@ -32,7 +36,9 @@ def save_state(path: str, state: Any, step: int,
                host_rng: Optional[np.random.Generator] = None):
     """Save a nested dict/list of tensors + the host RNG; path is a
     directory. ``latest.json`` is written last, so a crash mid-save leaves
-    the previous checkpoint current."""
+    the previous checkpoint current. Only the coordinator writes."""
+    if not dist.is_coordinator():
+        return
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     torch.save(_to_cpu(state), os.path.join(path, f"step_{step}.pt"))
@@ -68,7 +74,10 @@ def restore_state(path: str, device=None):
 
 
 def save_artifact(path: str, name: str, array):
-    """Reference-style output artifact (images_{it} etc.) as .npy."""
+    """Reference-style output artifact (images_{it} etc.) as .npy, written
+    by the coordinator."""
+    if not dist.is_coordinator():
+        return
     os.makedirs(path, exist_ok=True)
     if isinstance(array, torch.Tensor):
         array = array.detach().cpu().numpy()
@@ -93,7 +102,9 @@ def _keyed_leaves(tree, prefix=""):
 def save_pytree_artifact(path: str, name: str, tree: Any):
     """Nested dict/list artifact (e.g. hallucinator params in the JAX
     layout — hal_{it}.pt in the reference, distill_s2d_ms.py:175-193) as an
-    .npz of path-keyed leaves."""
+    .npz of path-keyed leaves, written by the coordinator."""
+    if not dist.is_coordinator():
+        return
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, f"{name}.npz"), **dict(_keyed_leaves(tree)))
 

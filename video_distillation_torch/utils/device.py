@@ -4,16 +4,29 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import dist
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU. Raises if CUDA is asked for and missing; never falls back."""
+    the CPU. Raises if CUDA is asked for and missing; never falls back.
+
+    Under a process group, ``"cuda"`` is this rank's card,
+    ``cuda:LOCAL_RANK``. A group built from the launcher's environment
+    must not hold more ranks than there are cards; a group the caller
+    built may (two gloo ranks sharing one card)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' "
                            "(--device cpu) to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device: {device}")
+    if dev.type == "cuda" and dev.index is None and dist.active():
+        cards = torch.cuda.device_count()
+        if dist.owns_group() and dist.world_size() > cards:
+            raise RuntimeError(f"{dist.world_size()} ranks but {cards} CUDA "
+                               "device(s): launch at most one rank a card")
+        dev = torch.device("cuda", dist.local_rank() % cards)
     return dev
 
 

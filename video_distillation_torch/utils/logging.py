@@ -5,6 +5,8 @@ Replaces the reference's wandb-as-config-system idiom
 metric stream + stdout; wandb is attached opportunistically when available
 and enabled (the scalars logged mirror the reference: Loss, Grand_Loss,
 Accuracy/Max_Accuracy/Std per eval model, Synthetic_LR, Progress).
+Under a process group only the coordinator (rank 0) writes or prints; the
+metrics it logs are the same on every rank.
 """
 
 from __future__ import annotations
@@ -15,14 +17,19 @@ import sys
 import time
 from typing import Optional
 
+from ..parallel import dist
+
 
 class MetricLogger:
     def __init__(self, log_dir: Optional[str] = None, run_name: str = "run",
                  use_wandb: bool = False, project: str = "vdtpu",
                  config: Optional[dict] = None, quiet: bool = False):
-        self.quiet = quiet
+        writer = dist.is_coordinator()
+        self.quiet = quiet or not writer
         self._fh = None
         self._wandb = None
+        if not writer:
+            log_dir, use_wandb = None, False
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._fh = open(os.path.join(log_dir, f"{run_name}.jsonl"), "a")

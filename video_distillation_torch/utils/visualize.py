@@ -17,6 +17,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..parallel import dist
+
 
 def scale_for_vis(x: np.ndarray, mean: Optional[Sequence[float]] = None,
                   std: Optional[Sequence[float]] = None) -> np.ndarray:
@@ -60,7 +62,10 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def _save_png(path: str, grid_u8: np.ndarray) -> None:
-    """An 8-bit RGB PNG: every scanline with filter type 0, one IDAT."""
+    """An 8-bit RGB PNG: every scanline with filter type 0, one IDAT;
+    written by the coordinator only."""
+    if not dist.is_coordinator():
+        return
     h, w, _ = grid_u8.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
                            np.ascontiguousarray(grid_u8).reshape(h, w * 3)],
