@@ -1,0 +1,4 @@
+"""Device ms of the kernels under aten::convolution and
+aten::convolution_backward, per outer step."""
+
+from portbench.harness.readers import conv_ms as read  # noqa: F401
