@@ -1359,7 +1359,7 @@ def phase_augment(tmp):
     the CPU from the same draws (made on the CPU), forward and backward
     into x, with the card's times. One DC augment batch on the host. One
     DSA call under ``utils.profiling.trace``: its Chrome trace must hold
-    the ``annotate`` span and kernels on the card. None of the port's
+    the ``span`` and kernels on the card. None of the port's
     kernels launches."""
     a = AUGMENT
     reset_all_launches()
@@ -1409,7 +1409,7 @@ def phase_augment(tmp):
     log_dir = os.path.join(tmp, "augment_trace")
     x = frames.cuda()
     with profiling.trace(log_dir):
-        with profiling.annotate("dsa_M"):
+        with profiling.span("dsa_M"):
             make_diff_augment(DSA_STRATEGY, ParamDiffAug(aug_mode="M"))(
                 torch.Generator(device="cuda").manual_seed(0), x)
         torch.cuda.synchronize()

@@ -236,13 +236,10 @@ def test_gaussian_blur_matches_jax(sigma, size):
 
 
 def test_profiling_hooks(tmp_path):
-    """``trace`` writes a Chrome trace holding the ``annotate`` span;
-    ``timed`` returns the call's result and its seconds."""
+    """``trace`` writes a Chrome trace holding the ``span``."""
     with profiling.trace(str(tmp_path / "prof")):
-        with profiling.annotate("augment_span"):
+        with profiling.span("augment_span"):
             ta.diff_augment(torch.from_numpy(images()), STRATEGY,
                             torch.Generator().manual_seed(0))
     path = tmp_path / "prof" / "trace.json"
     assert path.exists() and "augment_span" in path.read_text()
-    out, seconds = profiling.timed(lambda a, b=1: (a + b, [a]), 2, b=3)
-    assert out == (5, [2]) and seconds >= 0.0

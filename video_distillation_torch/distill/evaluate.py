@@ -77,6 +77,7 @@ from ..data.store import VideoData, normalize_u8
 from ..models.registry import is_video_model
 from ..ops.metrics import per_class_correct, topk_correct
 from ..parallel import dist
+from ..utils.profiling import span, to_host
 from . import dm
 from .frepo import bias_correction
 from .mtt import draw_keep_mask, flat_param_template, masked_ce, plan_denoms
@@ -427,13 +428,14 @@ def train_synset(generator, syn_images, syn_labels, meta, cfg: EvalConfig,
     corrects, counts = [], []
     for step in range(tr.steps):
         idx = batch_idx[step]
-        x, y, w = tr.batch(idx, generator,
-                           None if draws is None or draws.slots is None
-                           else draws.slots[step])
-        km = (tr.keep_mask(model, generator) if keep_masks is None else
-              tr.split_mask(torch.as_tensor(keep_masks[step],
-                                            device=tr.device), 0))
-        x = tr.prepare(x, w, theta.dtype)
+        with span("eval.batch"):
+            x, y, w = tr.batch(idx, generator,
+                               None if draws is None or draws.slots is None
+                               else draws.slots[step])
+            km = (tr.keep_mask(model, generator) if keep_masks is None else
+                  tr.split_mask(torch.as_tensor(keep_masks[step],
+                                                device=tr.device), 0))
+            x = tr.prepare(x, w, theta.dtype)
         theta.requires_grad_(True)
         denom = plan_denoms(idx)
         loss, hits = tr.loss(model, layout.unflatten(theta), x, y, w, denom,
@@ -441,14 +443,15 @@ def train_synset(generator, syn_images, syn_labels, meta, cfg: EvalConfig,
         (grad,) = torch.autograd.grad(loss, theta)
         dist.all_reduce_(grad)
         with torch.no_grad():
-            theta, mom, adam_v, ema = tr.update(step, theta.detach(), grad,
-                                                mom, adam_v, ema)
+            with span("eval.update"):
+                theta, mom, adam_v, ema = tr.update(step, theta.detach(),
+                                                    grad, mom, adam_v, ema)
             if step >= tr.steps - tr.nb:
                 corrects.append(hits.detach())
                 counts.append((idx >= 0).sum())
     theta = tr.final(theta, ema)
     correct = dist.all_reduce_(torch.stack(corrects).sum())
-    acc_train = float(correct / torch.stack(counts).sum())
+    acc_train = to_host(correct / torch.stack(counts).sum())
     return theta, model, acc_train
 
 
@@ -506,14 +509,15 @@ def train_synsets(generator, num_nets: int, syn_images, syn_labels, meta,
         slot = None if draws is None or draws[0].slots is None else [
             np.stack([np.asarray(d.slots[step][k]) for d in draws])
             for k in range(3)]
-        x, y, w = tr.batch(idx, generator, slot)
-        if keep_masks is not None:
-            km = tr.split_mask(torch.stack([
-                torch.as_tensor(m[step], device=tr.device)
-                for m in keep_masks]), 1)
-        else:
-            km = tr.keep_mask(model, generator, num_nets)
-        x = tr.prepare(x, w, theta.dtype)
+        with span("eval.batch"):
+            x, y, w = tr.batch(idx, generator, slot)
+            if keep_masks is not None:
+                km = tr.split_mask(torch.stack([
+                    torch.as_tensor(m[step], device=tr.device)
+                    for m in keep_masks]), 1)
+            else:
+                km = tr.keep_mask(model, generator, num_nets)
+            x = tr.prepare(x, w, theta.dtype)
         denom = plan_denoms(idx)
         hits = []
         for g in groups:
@@ -528,7 +532,7 @@ def train_synsets(generator, num_nets: int, syn_images, syn_labels, meta,
             grad = flatten(per_param)
             del per_param
             dist.all_reduce_(grad)
-            with torch.no_grad():
+            with torch.no_grad(), span("eval.update"):
                 bufs = (theta, mom, adam_v, ema)
                 new = tr.update(step, theta[g], grad,
                                 *(None if b is None else b[g] for b in bufs[1:]))
@@ -542,7 +546,7 @@ def train_synsets(generator, num_nets: int, syn_images, syn_labels, meta,
             counts += (idx >= 0).sum(1)
     theta = tr.final(theta, ema)
     dist.all_reduce_(corrects)
-    return theta, model, (corrects / counts).tolist()
+    return theta, model, to_host(corrects / counts)
 
 
 def _stack_test_batches(clips: np.ndarray, labels: np.ndarray,

@@ -48,6 +48,7 @@ from torch.func import functional_call
 
 from ..models.registry import path_model
 from ..parallel import dist
+from ..utils.profiling import span
 from .params import layout_for
 from .s2d import (S2DConfig, distill_slots, grad_leaves, grad_tensors,
                   hallucinate, momentum_sgd, state_grads)
@@ -215,22 +216,23 @@ class MTTCore:
         batch; each inner gradient is summed over the ranks. Returns
         (grand_loss, param_loss, param_dist)."""
         remat = self.second_order == "remat"
-        theta = theta_start.detach().requires_grad_(not remat)
-        for s in range(self.syn_steps):
-            km = None if keep_masks is None else keep_masks[s]
-            denom = None if denoms is None else denoms[s]
-            if remat:
-                theta = _RematStep.apply(theta, batches_x[s], syn_lr,
-                                         batches_y[s], batches_w[s], km,
-                                         denom, self)
-                continue
-            ce = self.ce(theta, batches_x[s], batches_y[s], batches_w[s], km,
-                         generator, denom)
-            (g,) = torch.autograd.grad(ce, theta, create_graph=True)
-            theta = theta - syn_lr * dist.reduced(g)
-        param_loss = ((theta - theta_target) ** 2).sum()
-        param_dist = ((theta_start - theta_target) ** 2).sum()
-        return param_loss / param_dist, param_loss, param_dist
+        with span("mtt.unroll"):
+            theta = theta_start.detach().requires_grad_(not remat)
+            for s in range(self.syn_steps):
+                km = None if keep_masks is None else keep_masks[s]
+                denom = None if denoms is None else denoms[s]
+                if remat:
+                    theta = _RematStep.apply(theta, batches_x[s], syn_lr,
+                                             batches_y[s], batches_w[s], km,
+                                             denom, self)
+                    continue
+                ce = self.ce(theta, batches_x[s], batches_y[s], batches_w[s],
+                             km, generator, denom)
+                (g,) = torch.autograd.grad(ce, theta, create_graph=True)
+                theta = theta - syn_lr * dist.reduced(g)
+            param_loss = ((theta - theta_target) ** 2).sum()
+            param_dist = ((theta_start - theta_target) ** 2).sum()
+            return param_loss / param_dist, param_loss, param_dist
 
 
 class MTTStep:
@@ -338,24 +340,25 @@ class S2DMTTStep:
         over the ranks is the loss's. Every rank draws the slots of the
         whole plan and composes its own columns' clips."""
         cfg = self.s2d_cfg
-        labels, s_idx, d_idx = (
-            dist.split_columns(t) for t in
-            s2d_slot_draws(plan, cfg, generator, draws))
-        plan, keep_masks, denoms = self.core.split_plan(
-            plan, keep_masks, generator, (cfg.frames, *cfg.im_size))
-        w = (plan >= 0).float()
-        st = state["static"]
-        if not self.hyper.train_static:
-            # frozen static: cut its whole backward chain (dgrad of the
-            # static input and the gather's index_add)
-            st = st.detach()
-        static = take_rows(st, s_idx.reshape(-1))
-        dy = state["dynamic"]
-        flat_idx = labels.reshape(-1) * dy.shape[1] + d_idx.reshape(-1)
-        dynamic = take_rows(dy.reshape((-1,) + dy.shape[2:]), flat_idx)
-        # compose + stage the unroll batches in the compute dtype
-        videos = hallucinate(state["hals"][0], static, dynamic, cfg.hal_mode,
-                             dtype=self.core.cdt)
+        with span("mtt.compose"):
+            labels, s_idx, d_idx = (
+                dist.split_columns(t) for t in
+                s2d_slot_draws(plan, cfg, generator, draws))
+            plan, keep_masks, denoms = self.core.split_plan(
+                plan, keep_masks, generator, (cfg.frames, *cfg.im_size))
+            w = (plan >= 0).float()
+            st = state["static"]
+            if not self.hyper.train_static:
+                # frozen static: cut its whole backward chain (dgrad of the
+                # static input and the gather's index_add)
+                st = st.detach()
+            static = take_rows(st, s_idx.reshape(-1))
+            dy = state["dynamic"]
+            flat_idx = labels.reshape(-1) * dy.shape[1] + d_idx.reshape(-1)
+            dynamic = take_rows(dy.reshape((-1,) + dy.shape[2:]), flat_idx)
+            # compose + stage the unroll batches in the compute dtype
+            videos = hallucinate(state["hals"][0], static, dynamic,
+                                 cfg.hal_mode, dtype=self.core.cdt)
         batches_x = videos.reshape((self.syn_steps, -1) + videos.shape[1:])
         return self.core.unroll(theta_start, theta_target, syn_lr, batches_x,
                                 labels, w, keep_masks, generator, denoms)
@@ -368,9 +371,10 @@ class S2DMTTStep:
                              device=leaf["dynamic"].device).detach().requires_grad_(True)
         loss, ploss, pdist = self.loss(leaf, lr, theta_start, theta_target,
                                        plan, generator, draws, keep_masks)
-        g, (g_lr,) = state_grads(dist.share(loss), leaf, hp.train_static,
-                                 extra=(lr,))
-        dist.all_reduce_tensors_(grad_tensors(g) + [g_lr])
+        with span("mtt.outer_grad"):
+            g, (g_lr,) = state_grads(dist.share(loss), leaf, hp.train_static,
+                                     extra=(lr,))
+            dist.all_reduce_tensors_(grad_tensors(g) + [g_lr])
         g["syn_lr"] = g_lr
         new_state, new_moms = momentum_sgd(
             state, moms, g, {"static": hp.lr_static, "dynamic": hp.lr_dynamic,

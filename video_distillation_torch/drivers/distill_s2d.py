@@ -45,6 +45,7 @@ from ..utils.checkpoint import (restore_state, save_artifact,
                                 save_pytree_artifact, save_state)
 from ..utils.device import resolve_device, step_generator, use_exact_fp32
 from ..utils.logging import MetricLogger, StepTimer
+from ..utils.profiling import span, to_device, to_host
 from ..utils.visualize import save_s2d_grids
 from .common import (EVAL_STREAM, EvalTracker, checkpoint_due, load_data,
                      parse_config_args)
@@ -128,7 +129,7 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
         if tracker.should_eval(it):
             tracker.maybe_eval(
                 it, step_generator(cfg.seed, EVAL_STREAM + it, device), None,
-                None, float(holder["syn_lr"]), s2d_cfg=s2d_cfg,
+                None, to_host(holder["syn_lr"]), s2d_cfg=s2d_cfg,
                 s2d_state=holder["state"])
 
     def checkpoint(it):
@@ -168,18 +169,19 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
         cfg.compute_dtype, device, cfg.second_order)
 
     def segment():
-        t0, t1, start_epoch = sampler.sample_segment(cfg.max_start_epoch,
-                                                     cfg.expert_epochs)
-        return (torch.as_tensor(t0, dtype=torch.float32, device=device),
-                torch.as_tensor(t1, dtype=torch.float32, device=device),
-                start_epoch)
+        with span("driver.segment"):
+            t0, t1, start_epoch = sampler.sample_segment(cfg.max_start_epoch,
+                                                         cfg.expert_epochs)
+            return (to_device(t0, device, torch.float32),
+                    to_device(t1, device, torch.float32), start_epoch)
 
     seg = segment()
     for it in range(start_it, cfg.Iteration + 1):
         evaluate(it)
         theta0, theta1, start_epoch = seg
-        plan = torch.as_tensor(make_batch_plan(rng, n_syn, batch_syn,
-                                               cfg.syn_steps), device=device)
+        with span("driver.plan"):
+            plan = to_device(make_batch_plan(rng, n_syn, batch_syn,
+                                             cfg.syn_steps), device)
         out = step_fn(step_generator(cfg.seed, it, device), holder["state"],
                       holder["syn_lr"], moms, mom_lr, theta0, theta1, plan)
         seg = segment()
@@ -188,10 +190,11 @@ def run(cfg: DistillConfig, data, logger: MetricLogger,
         if step_hook is not None:
             step_hook(it, out)
         if it % 10 == 0:
-            logger.log({"Grand_Loss": float(out[4]),
-                        "Start_Epoch": start_epoch,
-                        "Synthetic_LR": float(holder["syn_lr"]),
-                        "steps_per_sec": timer.rate()}, step=it)
+            with span("driver.log"):
+                logger.log({"Grand_Loss": to_host(out[4]),
+                            "Start_Epoch": start_epoch,
+                            "Synthetic_LR": to_host(holder["syn_lr"]),
+                            "steps_per_sec": timer.rate()}, step=it)
         checkpoint(it)
     return holder
 

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..ops.phase_trio import phase_max
 from ..ops.s2d2_move import s2d2_pack
+from ..utils.profiling import to_device
 
 
 def torch_default_bound(fan_in: int) -> float:
@@ -210,7 +211,7 @@ def s2d2_weight(weight):
     # zero-padded by one tap in kh and kw for the empty slot 7
     w2 = weight.permute(3, 4, 2, 1, 0).reshape(7, 7, 3 * c, o)
     w2p = F.pad(w2, (0, 0, 0, 0, 0, 1, 0, 1))
-    u = torch.as_tensor(_U2, device=weight.device)
+    u = to_device(_U2, weight.device)
     wg = w2p[u[:, :, :, None, None, None], u[None, None, None]]
     # (dy, py, ay, dx, px, ax, ck, o) -> (ay, ax, o, dy, dx, py, px, ck),
     # then viewed as (4O, 12C, 5, 5)
