@@ -26,6 +26,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              version's, cuDNN's TF32 and the kernel's on bf16 inputs
              distances from fp64 beside it) and bit-equal across two
              calls; each timed beside its byte bound and cuDNN's conv3d.
+2a. check_conv3d_s2 — ConvNet3D's later-stage convolution kernel
+             (``ops.conv3d_s2``, bf16) at both distillation cells' second-
+             and third-stage shapes: against ``F.conv3d`` in fp32 (TF32 off)
+             from the same bf16 inputs (``check_bf16``), bit-equal across
+             two launches; timed through its wrapper and alone through its C
+             interface beside its bound and cuDNN's bf16 ``F.conv3d``
+             (``library_ms``). Then the crossover: kernel and cuDNN at GEMM
+             sizes M around the route's threshold ``c3.MIN_M``.
+             ``python3 chip_smoke.py conv3d_s2`` runs the build and this
+             phase alone.
 2b. check_vmap — each kernel Function's ``torch.func.vmap`` rule: one
              vmapped call over 3 nets at the evaluation shape (fp32, B=50,
              F=16, 112x112) against the nets' unbatched calls, each kernel
@@ -51,7 +61,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              every outer gradient must be finite, syn_lr >= 0.001, each
              hallucinator kernel launched exactly once per outer step, and
              per outer step pack, phase_argmax, phase_select and unpack
-             syn_steps times and phase_scatter 2 x syn_steps times. Then
+             syn_steps times, phase_scatter 2 x syn_steps times and the
+             later-stage convolution 3 x syn_steps times (the second stage
+             routed; ``per_outer_step``). Then
              the A/B of the first stage, through ``S2DMTTStep`` alone: 1
              warm-up + 3 timed bf16 steps with the fused stage and as many
              with ``fuse_first_stage=False``, steps/s and peak memory each.
@@ -266,7 +278,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              It launches none of the port's kernels.
 
 Then the ``kernels`` line (launch counts: the three ``hal_conv`` and the
-five first-stage kernels from the bf16 slice run, ``hal_fused`` from the
+five first-stage kernels and ``conv3d_s2_fprop`` (its row at ucf's
+second-stage shape) from the bf16 slice run, ``hal_fused`` from the
 pipeline run's batched evaluations; the other paths' counts are in their
 phases' lines), the
 card's name and power limit, and the ``ok`` line.
@@ -329,6 +342,7 @@ from video_distillation_torch.models.registry import \
 from video_distillation_torch.models.hallucinator import \
     init_hallucinator  # noqa: E402
 from video_distillation_torch.ops import build, hal_conv as hc  # noqa: E402
+from video_distillation_torch.ops import conv3d_s2 as c3  # noqa: E402
 from video_distillation_torch.ops import hal_fused as hf  # noqa: E402
 from video_distillation_torch.ops import phase_trio as pt  # noqa: E402
 from video_distillation_torch.ops import s2d2_move as sm  # noqa: E402
@@ -479,28 +493,38 @@ def first_stage_launches():
 def reset_first_stage():
     pt.reset_launches()
     sm.reset_launches()
+    c3.reset_launches()
 
 
-def per_outer_step(syn_steps):
+def per_outer_step(syn_steps, conv_stages=1):
     """First-stage launches of one S2D-MTT outer step: each inner forward
     packs and takes the phase max; each inner backward scatters; the outer
     backward scatters through every forward, selects through every inner
-    scatter and unpacks every pack's cotangent."""
+    scatter and unpacks every pack's cotangent. With them the later-stage
+    convolution kernel, three times an inner step for each of the
+    ``conv_stages`` stages the route sends it (bf16 at 112x112x16 and 50
+    clips: the second; the third's M is under ``c3.MIN_M``; 0 in fp32):
+    the inner forward and the two forward convolutions of the outer
+    backward's double backward."""
     return {"phase_argmax": syn_steps, "phase_select": syn_steps,
             "phase_scatter": 2 * syn_steps, "s2d2_pack": syn_steps,
-            "s2d2_unpack": syn_steps}
+            "s2d2_unpack": syn_steps,
+            "conv3d_s2_fprop": 3 * syn_steps * conv_stages}
 
 
-def per_outer_step_remat(syn_steps):
+def per_outer_step_remat(syn_steps, conv_stages=1):
     """First-stage launches of one S2D-MTT outer step under
     ``second_order='remat'``: each inner step's forward and first-order
     backward run in the forward pass and again in the outer backward's
     recompute (pack and phase max twice, scatter twice), and the
     recompute's backward scatters through the forward, selects through the
-    inner scatter and unpacks once."""
+    inner scatter and unpacks once. The later-stage convolution kernel: two
+    forwards and the recompute's double backward's two, four times an
+    inner step a routed stage."""
     return {"phase_argmax": 2 * syn_steps, "phase_select": syn_steps,
             "phase_scatter": 3 * syn_steps, "s2d2_pack": 2 * syn_steps,
-            "s2d2_unpack": syn_steps}
+            "s2d2_unpack": syn_steps,
+            "conv3d_s2_fprop": 4 * syn_steps * conv_stages}
 
 
 def first_order(steps, no_grad_forwards=0):
@@ -512,7 +536,11 @@ def first_order(steps, no_grad_forwards=0):
 
 
 def check_first_stage_counts(where, want):
+    """The first-stage kernels' launches, and the later-stage convolution's
+    where ``want`` counts it (an outer step: ``per_outer_step``)."""
     got = first_stage_launches()
+    if "conv3d_s2_fprop" in want:
+        got.update(c3.LAUNCHES)
     if got != want:
         raise AssertionError(f"{where}: first-stage launches {got}, "
                              f"expected {want}")
@@ -534,6 +562,8 @@ def kernel_name(mangled):
         tail, args = mangled[i:], []
         if (b := re.match(r"ILb(\d)E", tail)):  # one bool template argument
             return f"{name}<{b.group(1)}>"
+        if (n := re.match(r"ILi(\d+)EE", tail)):  # one int template argument
+            return f"{name}<{n.group(1)}>"
         for code, short in types.items():
             if tail.startswith(code):
                 args.append(short)
@@ -782,6 +812,99 @@ def check_hal_fp32_full_width():
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": cuda_ms(lib, 5)})
     emit({"phase": "check_fp32_full_width", "rows": rows, "ok": True})
+
+
+# ConvNet3D's later-stage convolution (``ops.conv3d_s2``) at the shapes both
+# distillation cells run: (B, Cin, F, H, W) in, Cout out
+CONV3D_S2_SHAPES = {"ucf_stage2": ((50, 64, 16, 28, 28), 128),
+                    "k400_stage2": ((256, 64, 8, 16, 16), 128),
+                    "ucf_stage3": ((50, 128, 8, 7, 7), 128),
+                    "k400_stage3": ((256, 128, 4, 4, 4), 128)}
+CONV3D_S2_SOURCE = "video_distillation_torch/csrc/conv3d_s2.cu"
+
+
+def phase_check_conv3d_s2():
+    """The later-stage convolution kernel at both cells' second- and
+    third-stage shapes, bf16 with a bias: against the plain version computed
+    in fp32 (TF32 off) from the same bf16 inputs (``check_bf16``) and
+    bit-equal across two launches; timed through the wrapper (``ms``, the
+    weight's layout included) and alone through its C interface on a weight
+    prepared once (``kernel_ms``), beside its bound (the GEMM's FLOPs at the
+    dense bf16 rate, or the bytes if more) and cuDNN's ``F.conv3d`` in bf16
+    (``library_ms``: the parent's path)."""
+    bw, _, tensor = card_peaks(torch.cuda.get_device_name(0))
+    lib, rows = c3._lib(), {}
+    for name, ((b, cin, f, h, w), cout) in CONV3D_S2_SHAPES.items():
+        x = randn((b, cin, f, h, w), torch.bfloat16, 31)
+        wt = (randn((cout, cin, 3, 7, 7), torch.float32, 32)
+              * (cin * 147) ** -0.5).to(torch.bfloat16)
+        bs = randn((cout,), torch.bfloat16, 33)
+        c3.reset_launches()
+        y = c3.fprop(x, wt, bs)
+        err = check_bf16(f"conv3d_s2 {name}", y,
+                         c3.fprop_plain(x.float(), wt.float(), bs.float()))
+        if not torch.equal(y, c3.fprop(x, wt, bs)):
+            raise AssertionError(f"conv3d_s2 {name}: two launches differ")
+        assert c3.LAUNCHES["conv3d_s2_fprop"] == 2, c3.LAUNCHES
+        ho, wo = c3.out_size(h), c3.out_size(w)
+        m = b * f * ho * wo
+        flops = 2 * m * cout * cin * 147
+        nbytes = 2 * (x.numel() + wt.numel() + cout + m * cout)
+        t_ops, t_bytes = flops / tensor * 1e3, nbytes / bw * 1e3
+        wp = c3.prep_weight(wt)
+        yk = torch.empty_like(y)
+
+        def alone():
+            rc = lib.conv3d_s2_fprop(x.data_ptr(), wp.data_ptr(), bs.data_ptr(),
+                                     yk.data_ptr(), b, cin, cout, f, h, w,
+                                     hc._stream())
+            hc._check_rc(rc, "conv3d_s2_fprop")
+
+        kernel_ms = cuda_ms(alone, 20)
+        if not torch.equal(yk, y):
+            raise AssertionError(f"conv3d_s2 {name}: C interface differs")
+        bound = max(t_ops, t_bytes)
+        rows[name] = {
+            "name": "conv3d_s2_fprop", "shape": name, "route": "cuda",
+            "source": CONV3D_S2_SOURCE,
+            "replaces": "none (cuDNN's implicit_convolveNd_sgemm)",
+            "launches": None, "max_abs_err": err, "gemm_mnk": (m, cout, cin * 147),
+            "ms": cuda_ms(lambda: c3.fprop(x, wt, bs), 20),
+            "kernel_ms": kernel_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "pct_of_bound": 100 * bound / kernel_ms,
+            "library_ms": cuda_ms(lambda: torch.nn.functional.conv3d(
+                x, wt, bs, stride=c3.STRIDE, padding=c3.PADDING), 5)}
+        del x, y, yk
+    emit({"phase": "check_conv3d_s2", "rows": list(rows.values())})
+    emit({"phase": "check_conv3d_s2_crossover", "min_m": c3.MIN_M,
+          "rows": conv3d_s2_crossover()})
+    return rows
+
+
+# the route's M threshold: the second stage's (Cin, F, H, W) of both cells
+# and the third stage's at the batches that put M around it
+CONV3D_S2_SWEEP = {(64, 16, 28, 28): (1, 2, 4, 8), (64, 8, 16, 16): (8, 16, 32),
+                   (128, 8, 7, 7): (25, 50, 100, 200, 400)}
+
+
+def conv3d_s2_crossover():
+    """The kernel (through its wrapper) against cuDNN's bf16 ``F.conv3d`` at
+    the GEMM sizes around ``MIN_M``: ms each, 128 output channels."""
+    rows = []
+    for (cin, f, h, w), batches in CONV3D_S2_SWEEP.items():
+        wt = (randn((128, cin, 3, 7, 7), torch.float32, 34)
+              * (cin * 147) ** -0.5).to(torch.bfloat16)
+        bs = randn((128,), torch.bfloat16, 35)
+        for b in batches:
+            x = randn((b, cin, f, h, w), torch.bfloat16, 36)
+            rows.append({"shape": (b, cin, f, h, w), "m": c3.gemm_m(x.shape),
+                         "ms": cuda_ms(lambda: c3.fprop(x, wt, bs), 20),
+                         "library_ms": cuda_ms(
+                             lambda: torch.nn.functional.conv3d(
+                                 x, wt, bs, stride=c3.STRIDE,
+                                 padding=c3.PADDING), 20)})
+    return rows
 
 
 def all_launches():
@@ -1106,6 +1229,7 @@ def phase_slice(tmp):
           "launches": launches})
 
     cfg = config("float32", 0)
+    per_step = per_outer_step(SLICE["syn_steps"], conv_stages=0)  # fp32: cuDNN
     marks.clear()
     losses.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -1690,9 +1814,9 @@ def phase_pipeline(tmp):
     outer = cfg.Iteration + 1
     test_forwards = (n_evals * EvalConfig().test_repeats
                      * -(-len(data.test) // TEST_BATCH))
-    want = first_order(expect, test_forwards)
+    want = first_order(expect, test_forwards)  # fp32: no conv3d_s2
     for k, n in per_outer_step(cfg.syn_steps).items():
-        want[k] += outer * n
+        want[k] = want.get(k, 0) + outer * n
     first_stage = check_first_stage_counts("pipeline distillation", want)
     accs = [(step, m["Accuracy/ConvNet3D"]) for step, m in logger.records
             if "Accuracy/ConvNet3D" in m]
@@ -2837,11 +2961,11 @@ def baselines_mtt(data_path, tmp):
     TrajectoryBuffer(np.stack(thetas)[None]).save(
         os.path.join(buf, "replay_buffer_0.npz"))
     syn_steps = get_preset("MTT").syn_steps
-    want = per_outer_step(syn_steps)
     res = {}
     for dtype, iterations in (("bfloat16", c["mtt_iterations"]),
                               ("float32", 0)):
         steps, losses = [], []
+        want = per_outer_step(syn_steps, int(dtype == "bfloat16"))
 
         def check(out):
             losses.append(float(out[4]))
@@ -3727,6 +3851,7 @@ def main():
     use_exact_fp32()
     phase_build()
     rows = phase_check()
+    rows["conv3d_s2_fprop"] = phase_check_conv3d_s2()["ucf_stage2"]
     phase_check_vmap()
     phase_parity()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3763,5 +3888,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["dist-drive"]:
         dist_drive_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["conv3d_s2"]:  # the build and this kernel's phase
+        use_exact_fp32()
+        phase_build()
+        phase_check_conv3d_s2()
     else:
         main()

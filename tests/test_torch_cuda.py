@@ -13,12 +13,15 @@ of the largest |value| for the fp32 summation order. The first-stage
 kernels copy values: pack, the phase trio and the winner index equal their
 plain versions bit for bit; unpack sums three values in fp32 in the plain
 version's order and rounds once, so it equals the plain version bit for
-bit in both dtypes.
+bit in both dtypes. The later-stage convolution (``ops.conv3d_s2``, bf16
+only) sums in fp32 and rounds once, so it is held to the bf16 bound against
+``F.conv3d`` in fp32 (TF32 off) from the same bf16 inputs.
 """
 
 import pytest
 import torch
 
+from video_distillation_torch.ops import conv3d_s2 as c3
 from video_distillation_torch.ops import hal_conv as hc
 from video_distillation_torch.ops import hal_fused as hf
 from video_distillation_torch.ops import phase_trio as pt
@@ -351,3 +354,128 @@ def test_first_stage_wrappers_raise_instead_of_falling_back(cuda):
         pt.phase_scatter(m, idx.cpu(), 4)
     with pytest.raises(ValueError, match="uint8"):
         pt.phase_scatter(m, idx.int(), 4)
+
+
+# ConvNet3D's later stages as the distillation cells run them ((B, Cin, F,
+# H, W), Cout): ucf's and k400's second and third stages; then W odd (the
+# input staged element by element), a plane of more than 256 outputs (row
+# bands), Cout past one block of 128 channels, F = 1
+CONV3D_S2_SHAPES = [((50, 64, 16, 28, 28), 128), ((256, 64, 8, 16, 16), 128),
+                    ((50, 128, 8, 7, 7), 128), ((256, 128, 4, 4, 4), 128),
+                    ((2, 16, 3, 9, 11), 16), ((1, 16, 2, 40, 36), 32),
+                    ((2, 32, 1, 12, 12), 144)]
+
+
+def _conv_inputs(shape, cout, seed):
+    x = _randn(shape, torch.bfloat16, seed)
+    wt = (_randn((cout, shape[1], 3, 7, 7), torch.float32, seed + 1)
+          * (shape[1] * 147) ** -0.5).to(torch.bfloat16)
+    return x, wt, _randn((cout,), torch.bfloat16, seed + 2)
+
+
+@pytest.mark.parametrize("shape,cout", CONV3D_S2_SHAPES)
+def test_conv3d_s2_rounds_once_and_is_deterministic(cuda, shape, cout):
+    x, wt, bs = _conv_inputs(shape, cout, 0)
+    c3.reset_launches()
+    y = c3.fprop(x, wt, bs)
+    _close_bf16(y, c3.fprop_plain(x.float(), wt.float(), bs.float()))
+    assert torch.equal(y, c3.fprop(x, wt, bs))
+    _close_bf16(c3.fprop(x, wt), c3.fprop_plain(x.float(), wt.float()))
+    assert c3.LAUNCHES == {"conv3d_s2_fprop": 3}
+
+
+def test_conv3d_s2_takes_an_unaligned_input(cuda):
+    x, wt, bs = _conv_inputs((2, 16, 3, 12, 16), 16, 3)
+    xu = torch.empty(x.numel() + 1, device="cuda", dtype=x.dtype)[1:]
+    xu = xu.view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    assert torch.equal(c3.fprop(xu, wt, bs), c3.fprop(x, wt, bs))
+
+
+def test_conv3d_s2_wrapper_raises_instead_of_falling_back(cuda):
+    x, wt, bs = _conv_inputs((1, 16, 2, 8, 8), 16, 4)
+    with pytest.raises(TypeError, match="bfloat16"):
+        c3.fprop(x.float(), wt.float(), bs.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        c3.fprop(x.transpose(3, 4).contiguous().transpose(3, 4), wt, bs)
+    with pytest.raises(ValueError, match="one CUDA device or all be on"):
+        c3.fprop(x, wt.cpu(), bs)
+
+
+def _rel(a, r):
+    return float((a.float() - r.float()).norm() / r.float().norm())
+
+
+def test_convnet3d_route_gradients_on_the_card(cuda, monkeypatch):
+    """First- and second-order gradients of a bf16 ConvNet3D (32 clips of
+    64x64x8, the K400 configuration's stages, fp32 head) through the route and through
+    ``F.conv3d`` (the gate forced shut), each against the fp32 net: the
+    route within twice cuDNN's distance of fp32, or 1e-2 (relative norm;
+    two bf16 paths whose sums round in other places)."""
+    from video_distillation_torch.models.convnet3d import ConvNet3D
+    gen = torch.Generator().manual_seed(0)
+    net = ConvNet3D(3, 4, frames=8, im_size=(64, 64), generator=gen).cuda()
+    # 32 clips: the second stage's M is 16,384, routed
+    x0 = torch.randn(32, 8, 64, 64, 3, generator=gen).cuda()
+    y = torch.arange(32, device="cuda") % 4
+    params = list(net.parameters())
+
+    def grads(dtype):
+        x = x0.to(dtype).requires_grad_(True)
+        logits = net(x, fp32_stages=("head",) if dtype != torch.float32 else ())
+        loss = torch.nn.functional.cross_entropy(logits.float(), y)
+        g = torch.autograd.grad(loss, params, create_graph=True)
+        gg = torch.autograd.grad(sum((t.float() ** 2).sum() for t in g),
+                                 [x] + params)
+        return [t.detach().float() for t in g + gg]
+
+    ref = grads(torch.float32)
+    c3.reset_launches()
+    routed = grads(torch.bfloat16)
+    launches = c3.LAUNCHES["conv3d_s2_fprop"]
+    c3.reset_launches()
+    with torch.no_grad():
+        net(x0.bfloat16())
+    stages = c3.LAUNCHES["conv3d_s2_fprop"]
+    assert stages >= 1 and launches == 3 * stages
+    monkeypatch.setattr(c3, "routes", lambda x, w: False)
+    cudnn = grads(torch.bfloat16)
+    for i, (a, c, r) in enumerate(zip(routed, cudnn, ref)):
+        assert _rel(a, r) <= max(2 * _rel(c, r), 1e-2), (i, _rel(a, r),
+                                                          _rel(c, r))
+
+
+def test_conv3d_s2_launches_per_outer_step(cuda):
+    """One bf16 S2D-MTT outer step (112x112x16, 8 classes, syn_steps 2):
+    the kernel launches 3 x syn_steps times per routed stage (each inner
+    forward, and the two forward convolutions of each inner step's double
+    backward); the stages routed are those one forward of the inner batch
+    launches (the second: M = 8*16*14*14 = 25,088)."""
+    from video_distillation_torch.distill import mtt as tmtt
+    from video_distillation_torch.distill.s2d import (
+        S2DConfig, init_s2d_momentum, init_s2d_state)
+    nc, steps, im, f = 8, 2, 112, 16
+    cfg = S2DConfig(num_classes=nc, frames=f, im_size=(im, im))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_s2d_state(gen, cfg, "cuda")
+    model, t0 = tmtt.flat_param_template("ConvNet3D", 3, nc, (im, im), f,
+                                         gen, "cuda")
+    _, t1 = tmtt.flat_param_template("ConvNet3D", 3, nc, (im, im), f, gen,
+                                     "cuda")
+    c3.reset_launches()
+    with torch.no_grad():
+        model(torch.randn(nc, f, im, im, 3, device="cuda").bfloat16())
+    stages = c3.LAUNCHES["conv3d_s2_fprop"]
+    step = tmtt.S2DMTTStep(
+        "ConvNet3D", 3, nc, (im, im), f, steps, cfg,
+        tmtt.S2DHyper(100.0, 0.01, 0.01, 1e-5, False, True), "bfloat16",
+        "cuda")
+    c3.reset_launches()
+    out = step(torch.Generator(device="cuda").manual_seed(1), state,
+               torch.tensor(0.01, device="cuda"), init_s2d_momentum(state),
+               torch.zeros((), device="cuda"), t0, t1,
+               torch.tensor([list(range(nc))] * steps, device="cuda"))
+    assert torch.isfinite(out[4])
+    assert stages >= 1
+    assert c3.LAUNCHES == {"conv3d_s2_fprop": 3 * steps * stages}

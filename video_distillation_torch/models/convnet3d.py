@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv3d_s2
 from .layers import (activation, avg_pool, check_stages, init_conv_, max_pool,
                      s2d2_conv_pool, stage_island)
 
@@ -104,8 +105,11 @@ class ConvNet3D(nn.Module):
                 continue
             if d == 0:
                 x = x.permute(0, 4, 1, 2, 3)  # (B, F, H, W, C) -> NCDHW
-            x = F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                         stride=(1, 2, 2), padding=(1, 3, 3))
+            w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+            if conv3d_s2.routes(x, w):
+                x = conv3d_s2.conv3d_s2(x, w, b)
+            else:
+                x = F.conv3d(x, w, b, stride=(1, 2, 2), padding=(1, 3, 3))
             x = self.act(x)
             if self.net_pooling == "maxpooling":
                 x = max_pool(x, (1, 2, 2) if d == 0 else (2, 2, 2))

@@ -21,7 +21,7 @@ from typing import Dict
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("hal_conv", "hal_fused", "phase_trio", "s2d2_move")
+SOURCES = ("hal_conv", "hal_fused", "phase_trio", "s2d2_move", "conv3d_s2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
