@@ -2,11 +2,13 @@
 metrics, print the result line.
 
 Everything a cell is made of is found by name from ``BENCHMARK.json``:
-the configuration's file (``configs[].file``), the traffic mix
-(``portbench/traffic/<traffic>.json``, whose ``"loop"`` names one of
-``loops.LOOPS``), the limits of its checks (``portbench/limits/<cell>.json``)
-and a reader for each metric (``portbench/metrics/<metric>.py``, a
-``read(run)`` that returns the number or None). A cell reports the
+the configuration's file (``configs[].file``), its student net's reference
+(``portbench/reference/nets/<model.name>.py``), the traffic mix
+(``portbench/traffic/<traffic>.json``), the loop it names
+(``portbench/loops/<loop>.py``), the limits of its checks
+(``portbench/limits/<cell>.json``) and a reader for each metric
+(``portbench/metrics/<metric>.py``, a ``read(run)`` that returns the number
+or None); ``registry`` loads the Python files. A cell reports the
 end-to-end metrics with ``--trace 0`` and the per-layer metrics with
 ``--trace 1``: those that list it, and those that list no cells wherever
 their reader finds something to read.
@@ -16,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import importlib.util
 import json
 import math
 import os
@@ -28,8 +29,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from . import guard, tracing
-from .loops import LOOPS
+from . import guard, registry, tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # build and kernel caches of the program, inside the checkout at fixed paths
@@ -39,8 +39,10 @@ CACHE_DIR = os.path.join(ROOT, ".portbench_cache")
 @dataclasses.dataclass
 class Cell:
     name: str
+    root: str
     chips: int
     config: dict
+    net: object                   # reference/nets/<model.name>.py
     traffic: dict
     limits: Dict[str, float]
     end_to_end: List[dict]
@@ -66,9 +68,10 @@ def load_cell(root: str, workload: str) -> Cell:
     w = cells[workload]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     bdir = os.path.join(root, "portbench")
+    config = _load_json(os.path.join(root, conf["file"]))
     return Cell(
-        name=workload, chips=w["chips"],
-        config=_load_json(os.path.join(root, conf["file"])),
+        name=workload, root=root, chips=w["chips"], config=config,
+        net=registry.find(root, "reference/nets", config["model"]["name"]),
         traffic=_load_json(os.path.join(bdir, "traffic", f"{w['traffic']}.json")),
         limits=_load_json(os.path.join(bdir, "limits", f"{workload}.json")),
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, workload)],
@@ -76,12 +79,12 @@ def load_cell(root: str, workload: str) -> Cell:
 
 
 def reader(root: str, name: str):
-    path = os.path.join(root, "portbench", "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return registry.find(root, "metrics", name).read
+
+
+def loop(root: str, name: str):
+    """The loop a traffic mix names: ``portbench/loops/<name>.py``."""
+    return registry.find(root, "loops", name)
 
 
 def power_limit_w() -> Optional[float]:
@@ -129,7 +132,7 @@ def run_cell(root: str, args, t_start: float, device=None):
         build.build_all()
     scratch = tempfile.mkdtemp(prefix="portbench-")
     try:
-        run = LOOPS[cell.traffic["loop"]](
+        run = loop(root, cell.traffic["loop"]).run(
             cell, program_seed(args.seed), args.seconds, bool(args.trace),
             device, scratch, t_start)
     finally:

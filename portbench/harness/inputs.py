@@ -2,8 +2,9 @@
 
 The S2D state (a random static memory, a random dynamic memory, a
 hallucinator at torch's default init) and the expert trajectories (each
-expert a fresh net's θ, then ``snapshots - 1`` epochs of a random walk of
-``drift`` times each leaf's init bound) come from a ``torch.Generator`` on
+expert a θ drawn U(-b, b) leaf by leaf, b each leaf's init bound from the
+student net's reference, then ``snapshots - 1`` epochs of a random walk of
+``drift`` times b) come from a ``torch.Generator`` on
 the device. The benchmark keeps host copies for the reference and hands
 the program the same numbers through the files it reads: the expert
 buffer through the driver's own ``load_buffers``, the initial S2D state
@@ -19,8 +20,6 @@ from typing import Dict
 
 import numpy as np
 import torch
-
-from ..reference import convnet3d as net
 
 # the generator streams of one seed
 STATE_STREAM, EXPERT_STREAM, CALL_STREAM = 1, 2, 3
@@ -48,22 +47,22 @@ def s2d_state(seed: int, num_classes: int, spc: int, dpc: int, frames: int,
     }
 
 
-def leaf_bounds(channel: int, num_classes: int, device) -> torch.Tensor:
-    """(P,) each θ element's init bound 1/sqrt(fan_in)."""
-    leaves = net.leaves(channel, num_classes)
-    kernels = dict(leaves)
-    sizes = [math.prod(shape) for _, shape in leaves]
-    bounds = [1.0 / math.sqrt(net.fan_in(kernels[name.replace(".bias", ".kernel")]))
-              for name, _ in leaves]
-    return torch.repeat_interleave(torch.tensor(bounds, device=device),
-                                   torch.tensor(sizes, device=device))
+def leaf_bounds(net, m: dict, device) -> torch.Tensor:
+    """(P,) each θ element's init bound (``net.init_bounds``: 1/sqrt of
+    its layer's fan-in for a conv or a linear layer)."""
+    sizes = [math.prod(shape) for _, shape in net.leaves(m)]
+    return torch.repeat_interleave(
+        torch.tensor(net.init_bounds(m), device=device),
+        torch.tensor(sizes, device=device))
 
 
 def trajectories(seed: int, experts: int, snapshots: int, drift: float,
-                 channel: int, num_classes: int, device) -> np.ndarray:
-    """(experts, snapshots, P) float32 expert snapshots, on the host."""
+                 net, m: dict, device) -> np.ndarray:
+    """(experts, snapshots, P) float32 expert snapshots of the student net
+    ``net`` (its reference, widths from the configuration's ``model``
+    ``m``), on the host."""
     g = generator(seed, EXPERT_STREAM, device)
-    b = leaf_bounds(channel, num_classes, device)
+    b = leaf_bounds(net, m, device)
     p = b.numel()
     start = (torch.rand((experts, 1, p), generator=g, device=device) * 2 - 1) * b
     steps = torch.randn((experts, snapshots - 1, p), generator=g,

@@ -1,5 +1,5 @@
 """The metric readers that ``portbench/metrics/<metric>.py`` name. Each
-takes the run's record (``loops.Run``), whose ``unit`` is the work its
+takes the run's record (``runs.Run``), whose ``unit`` is the work its
 cell counts (an outer step, or one net's training step), and returns None
 where the run has nothing for it to read."""
 
@@ -8,7 +8,7 @@ from __future__ import annotations
 import re
 from typing import Optional
 
-from ..roofline.kernels import KERNELS
+from . import registry
 
 
 def rate(run) -> Optional[float]:
@@ -44,14 +44,17 @@ def conv_ms(run) -> Optional[float]:
 
 
 def kernels_roofline(run) -> Optional[float]:
-    """Σ launches x byte-bound time over Σ device time of the port's
-    kernels in the traced units, in %."""
+    """Σ launches x bound over Σ device time of the port's kernels that
+    have a roofline entry (``roofline/kernels/<counter>.py``: its kernels'
+    names and the least time a launch takes) in the traced units, in %."""
     d = _traced(run)
     if d is None:
         return None
-    bound = sum(d.launches.get(k, 0) * fn(run.shapes) / run.bytes_per_s
-                for k, (_, fn) in KERNELS.items())
-    pattern = re.compile("|".join(p for p, _ in KERNELS.values()))
+    entries = registry.every(run.root, "roofline/kernels")
+    bound = sum(d.launches.get(k, 0) * e.bound(run.shapes, run.config,
+                                               run.peaks)
+                for k, e in entries.items())
+    pattern = re.compile("|".join(e.PATTERN for e in entries.values()))
     spent = sum(us for name, us in d.by_kernel.items()
                 if pattern.search(name)) * 1e-6
     if spent <= 0 or bound <= 0:
@@ -66,3 +69,23 @@ def idle(run) -> Optional[float]:
     if d is None:
         return None
     return 100.0 * (1.0 - d.busy_us / d.window_us)
+
+
+def count(run, name: str) -> Optional[float]:
+    """The program's counter ``name`` (``utils/profiling.COUNTS``) over the
+    traced part, per unit of work."""
+    d = _traced(run)
+    if d is None or name not in d.counts:
+        return None
+    return d.counts[name] / d.units
+
+
+def idle_ms(run, prefix: str) -> Optional[float]:
+    """Idle ms per unit of work in the traced part, in the gaps that began
+    inside a program span whose name starts with ``prefix``; None for a
+    program without spans."""
+    d = _traced(run)
+    if d is None or not d.idle_by_span:
+        return None
+    us = sum(v for k, v in d.idle_by_span.items() if k.startswith(prefix))
+    return us / 1e3 / d.units

@@ -16,7 +16,9 @@ the kernels launched inside a convolution op (``aten::convolution`` or
 ``aten::convolution_backward``; each kernel counted once, under the host
 op the profiler lists it with),
 the idle gaps named by the host span and outermost host op open when each
-began, and the launch counters of the port's ops over the traced part.
+began, the launch counters of the port's ops and its transfer counters
+over the traced part, and device and idle time by the program's own spans
+(``spans.attribute``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import re
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -74,19 +76,28 @@ class Digest:
     units: float                      # steps (or net-steps) traced
     by_kernel: Dict[str, float]       # device us by kernel name
     conv_us: float
-    launches: Dict[str, int]
+    launches: Dict[str, int]          # the ops' launch counters
+    counts: Dict[str, int]            # the program's transfer counters
     gaps: List[Tuple[str, float]]     # (what the host did, us), longest first
+    by_span: Dict[str, float]         # device us by the program's span
+    idle_by_span: Dict[str, float]    # idle us by the span open as it began
 
 
 class Window:
     """Times the window and, if ``trace``, profiles units ``after`` to
-    ``after + count`` of it (``after`` units are left to settle first)."""
+    ``after + count`` of it (``after`` units are left to settle first) and
+    takes the change of the program's launch and transfer counters
+    (``launches()``, ``counts()``) over them."""
 
     def __init__(self, seconds: float, device, trace: bool, after: int,
-                 count: int, counters: Callable[[], Dict[str, int]]):
+                 count: int, launches: Callable[[], Dict[str, int]],
+                 counts: Callable[[], Dict[str, int]]):
         self.seconds, self.device = seconds, device
         self.trace, self.after, self.count = trace, after, count
-        self.counters = counters
+        self.launches, self.counts = launches, counts
+        if trace:
+            # a first read imports what the counters live in: not in the window
+            launches(), counts()
         self.units = 0.0
         self.ticks = 0
         self.spans = Spans()
@@ -113,7 +124,7 @@ class Window:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         self.prof = torch.profiler.profile(activities=acts)
         self.prof.__enter__()
-        self._base = dict(self.counters())
+        self._base = (dict(self.launches()), dict(self.counts()))
         self._traced = torch.profiler.record_function(TRACED)
         self._traced.__enter__()
         self.traced_units = 0.0
@@ -121,11 +132,12 @@ class Window:
     def _stop(self):
         self._sync()
         self._traced.__exit__(None, None, None)
-        launches = {k: v - self._base.get(k, 0)
-                    for k, v in self.counters().items()}
+        launches = _change(self.launches(), self._base[0])
+        counts = _change(self.counts(), self._base[1])
         self.spans.switch(None)
         self.prof.__exit__(None, None, None)
-        self.digest = digest(self.prof.events(), self.traced_units, launches)
+        self.digest = digest(self.prof.events(), self.traced_units, launches,
+                             counts)
         self.prof = None
 
     def tick(self, units: float) -> bool:
@@ -152,6 +164,11 @@ class Window:
     @property
     def elapsed(self) -> float:
         return self.t1 - self.t0
+
+
+def _change(now: Mapping[str, int], base: Mapping[str, int]
+            ) -> Dict[str, int]:
+    return {k: v - base.get(k, 0) for k, v in now.items()}
 
 
 def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -193,8 +210,12 @@ def _under(op, names) -> bool:
     return False
 
 
-def digest(events, units: float, launches: Dict[str, int]) -> Digest:
-    """The traced part's record from the profiler's events (``prof.events()``)."""
+def digest(events, units: float, launches: Mapping[str, int],
+           counts: Mapping[str, int]) -> Digest:
+    """The traced part's record from the profiler's events
+    (``prof.events()``) and the counters' change over it."""
+    from .spans import attribute
+
     events = list(events)
     traced = [e for e in events if e.name == TRACED
               and e.device_type == torch.autograd.DeviceType.CPU]
@@ -233,10 +254,12 @@ def digest(events, units: float, launches: Dict[str, int]) -> Digest:
                      if s.time_range.start <= start < s.time_range.end), "-")
         op = _outermost_op_at(ops, start)
         gaps.append((span if op is None else f"{span}:{op}", length))
+    by_span, idle_by_span = attribute(events)
     return Digest(window_us=w1 - w0,
                   busy_us=sum(b - a for a, b in busy), units=units,
-                  by_kernel=by_kernel, conv_us=conv_us, launches=launches,
-                  gaps=gaps)
+                  by_kernel=by_kernel, conv_us=conv_us,
+                  launches=dict(launches), counts=dict(counts), gaps=gaps,
+                  by_span=by_span, idle_by_span=idle_by_span)
 
 
 def breakdown(d: Digest, top: int = 10) -> Dict[str, list]:

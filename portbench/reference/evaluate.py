@@ -1,19 +1,21 @@
 """The synthetic-set evaluation's training in plain float32.
 
 The reference repository's ``evaluate_synset`` + ``epoch`` (utils.py:
-752-886) for a multi-static S2D set of spc == 2: ``nets`` fresh
-ConvNet3Ds, each trained ``epochs`` epochs on the whole synthetic set in
-batches of ``min(batch_train, n_syn)``: each batch composed afresh from a
-random still and a random motion of each sample's class through the
-hallucinator, standardised with scalar statistics over its valid rows, and
+752-886) for a multi-static S2D set of spc == 2: ``nets`` fresh student
+nets (the configuration's, its file under ``reference/nets``), each
+trained ``epochs`` epochs on the whole synthetic set in batches of
+``min(batch_train, n_syn)``: each batch composed afresh from a random still
+and a random motion of each sample's class through the hallucinator, given
+the net's input (``prepare``: a crop for the ``Video*`` nets), standardised
+with scalar statistics over its valid rows, and
 stepped by SGD (momentum 0.9, weight decay 5e-4); the rate drops tenfold
 for the epochs after ``epoch_eval_train // 2 + 1``, the momentum buffer
 restarted on the first of them.
 
 ``batched`` follows the draws of nets trained as one computation (all
 nets' parameters, then all nets' permutations, then per step every net's
-slots and one keep-mask draw for all nets); otherwise each net in turn
-makes all of its draws.
+slots and one keep-mask draw for all nets, none for a net without
+dropout); otherwise each net in turn makes all of its draws.
 """
 
 from __future__ import annotations
@@ -23,16 +25,17 @@ from typing import List
 
 import torch
 
-from . import convnet3d as net
+from .hallucinator import hallucinate
+from .ops import masked_ce
 from .sampling import eval_keep, eval_net_draws, eval_slot_bits
 
 
 @dataclasses.dataclass(frozen=True)
 class EvalSetting:
-    num_classes: int
-    channel: int
-    im_size: int
-    frames: int
+    """What an evaluation depends on, from the configuration's file: the
+    student net's reference (``net``) and the configuration's ``model``."""
+    net: object
+    model: dict
     spc: int
     dpc: int
     n_hal: int
@@ -42,7 +45,7 @@ class EvalSetting:
 
     @property
     def n_syn(self) -> int:
-        return self.num_classes  # vpc 1 for spc == 2
+        return self.model["num_classes"]  # vpc 1 for spc == 2
 
     @property
     def epochs(self) -> int:
@@ -61,8 +64,7 @@ def _compose(es: EvalSetting, state, idx, s_bits, d_bits, quant):
     label = idx
     static = state["static"][label * es.spc + s_bits]
     dynamic = state["dynamic"][label, d_bits]
-    return net.hallucinate(state["hal_w"], state["hal_b"], static, dynamic,
-                           quant)
+    return hallucinate(state["hal_w"], state["hal_b"], static, dynamic, quant)
 
 
 def train_nets(es: EvalSetting, state, generator: torch.Generator, nets: int,
@@ -81,7 +83,7 @@ def train_nets(es: EvalSetting, state, generator: torch.Generator, nets: int,
             perms = torch.cat([perms, perms.new_full((es.epochs, pad), -1)], 1)
         return perms.reshape(es.epochs * nb, bt)
 
-    first = []
+    first, net = [], es.net
 
     def run(thetas, plans, draw_step):
         moms = [torch.zeros_like(t) for t in thetas]
@@ -99,14 +101,14 @@ def train_nets(es: EvalSetting, state, generator: torch.Generator, nets: int,
                 with torch.no_grad():
                     x = _compose(es, state, safe, slots[0][e], slots[1][e],
                                  quant)
-                    x = _standardize(x, w)
+                    x = _standardize(net.prepare(x, es.model), w)
                 th = thetas[e].detach().requires_grad_(True)
-                logits = net.forward(net.unflatten(th, es.channel,
-                                                   es.num_classes),
-                                     x, es.im_size, keeps[e], quant)
+                logits = net.forward(net.unflatten(th, es.model), x,
+                                     es.model, None if keeps is None
+                                     else keeps[e], quant)
                 if step == 0:
                     first.append(logits.detach())
-                loss = net.masked_ce(logits, safe, w,
+                loss = masked_ce(logits, safe, w,
                                      (idx >= 0).sum().clamp_min(1).float())
                 (g,) = torch.autograd.grad(loss, th)
                 with torch.no_grad():
@@ -116,7 +118,7 @@ def train_nets(es: EvalSetting, state, generator: torch.Generator, nets: int,
         return thetas
 
     if batched:
-        inits = [net.init_theta(generator, es.channel, es.num_classes, device)
+        inits = [net.init_theta(generator, es.model, device)
                  for _ in range(nets)]
         plans = [plan_of(eval_net_draws(generator, es.n_syn, es.epochs,
                                         device)) for _ in range(nets)]
@@ -125,22 +127,22 @@ def train_nets(es: EvalSetting, state, generator: torch.Generator, nets: int,
             # the nets' batch indices are not needed for the bits' shapes
             s, d = eval_slot_bits(generator, (nets, bt), es.spc, es.dpc,
                                   es.n_hal, device)
-            return (s, d), eval_keep(generator, nets, bt, es.frames,
-                                     es.im_size, device)
+            return (s, d), eval_keep(generator, nets, bt, net, es.model,
+                                     device)
         final = run(list(inits), plans, draw_step)
         return [{"init": i, "theta": t, "logits0": f}
                 for i, t, f in zip(inits, final, first)]
 
     out = []
     for _ in range(nets):
-        init = net.init_theta(generator, es.channel, es.num_classes, device)
+        init = net.init_theta(generator, es.model, device)
         plan = plan_of(eval_net_draws(generator, es.n_syn, es.epochs, device))
 
         def draw_step():
             s, d = eval_slot_bits(generator, (bt,), es.spc, es.dpc, es.n_hal,
                                   device)
-            return (s[None], d[None]), eval_keep(generator, None, bt,
-                                                 es.frames, es.im_size, device)
+            return (s[None], d[None]), eval_keep(generator, None, bt, net,
+                                                 es.model, device)
         (theta,) = run([init], [plan], draw_step)
         out.append({"init": init, "theta": theta, "logits0": first[-1]})
     return out

@@ -3,8 +3,8 @@
 One outer step (the paper's Algorithm 1, the reference repository's
 ``distill_s2d_ms.py:113-310``): draw each planned sample's still and
 motion slot, compose the ``syn_steps`` batches through the hallucinator,
-unroll ``syn_steps`` SGD steps of ConvNet3D from the expert's θ_start at the
-learnable rate, and differentiate the grand loss
+unroll ``syn_steps`` SGD steps of the student net (``Setting.net``) from
+the expert's θ_start at the learnable rate, and differentiate the grand loss
 ‖θ_K − θ*‖² / ‖θ_start − θ*‖² to second order (``create_graph``) into the
 dynamic memory, the hallucinator and the rate. The memories and the
 hallucinator then take SGD with momentum 0.95, the rate (where it is
@@ -20,17 +20,18 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from . import convnet3d as net
+from .hallucinator import hallucinate
+from .ops import masked_ce
 from .sampling import ExpertOrder, batch_plan, distill_draws, step_generator
 
 
 @dataclasses.dataclass(frozen=True)
 class Setting:
-    """What an outer step depends on, from the configuration's file."""
-    num_classes: int
-    channel: int
-    im_size: int
-    frames: int
+    """What an outer step depends on, from the configuration's file: the
+    student net's reference (``net``, its file under ``reference/nets``)
+    and the configuration's ``model``, which gives its widths."""
+    net: object
+    model: dict
     spc: int
     dpc: int
     vpc: int
@@ -45,7 +46,7 @@ class Setting:
 
     @property
     def n_syn(self) -> int:
-        return self.num_classes * self.vpc
+        return self.model["num_classes"] * self.vpc
 
 
 def outer_step(st: Setting, state, syn_lr, moms, mom_lr, theta0, theta1,
@@ -57,8 +58,7 @@ def outer_step(st: Setting, state, syn_lr, moms, mom_lr, theta0, theta1,
     'syn_lr'). ``half_batch`` takes each inner batch's mean over its first
     half only (a fault the check has to catch)."""
     S, B = plan.shape
-    d_bits, s_bits, keeps = distill_draws(plan, st.frames, st.im_size,
-                                          generator)
+    d_bits, s_bits, keeps = distill_draws(plan, st.net, st.model, generator)
     safe = plan.clamp_min(0).long()
     label, idx = safe // st.vpc, safe % st.vpc
     s_idx = st.spc * label + 2 * idx + s_bits
@@ -73,17 +73,16 @@ def outer_step(st: Setting, state, syn_lr, moms, mom_lr, theta0, theta1,
     hal_b = state["hal_b"].detach().requires_grad_(True)
     lr = torch.as_tensor(syn_lr, dtype=torch.float32).detach().requires_grad_(True)
     dyn_rows = dynamic.reshape((-1,) + dynamic.shape[2:])
-    videos = net.hallucinate(hal_w, hal_b, state["static"][s_idx.reshape(-1)],
-                             dyn_rows[(label * st.dpc + d_idx).reshape(-1)],
-                             quant)
+    videos = hallucinate(hal_w, hal_b, state["static"][s_idx.reshape(-1)],
+                         dyn_rows[(label * st.dpc + d_idx).reshape(-1)], quant)
     x = videos.reshape((S, B) + videos.shape[1:])
 
     theta = theta0.detach().requires_grad_(True)
     start = theta
     for s in range(S):
-        params = net.unflatten(theta, st.channel, st.num_classes)
-        logits = net.forward(params, x[s], st.im_size, keeps[s], quant)
-        ce = net.masked_ce(logits, label[s], w[s], denom[s])
+        params = st.net.unflatten(theta, st.model)
+        logits = st.net.forward(params, x[s], st.model, keeps[s], quant)
+        ce = masked_ce(logits, label[s], w[s], denom[s])
         (g,) = torch.autograd.grad(ce, theta, create_graph=True)
         theta = theta - lr * g
     loss = (((theta - theta1) ** 2).sum()
@@ -110,20 +109,18 @@ def first_logits(st: Setting, state, theta0, plan: torch.Tensor,
     batch, composed from ``state`` with the step's draws. Nothing in it is
     downstream of an inner update, so it moves with the precision and not
     with a ReLU or max-pool winner that flips."""
-    d_bits, s_bits, keeps = distill_draws(plan, st.frames, st.im_size,
-                                          generator)
+    d_bits, s_bits, keeps = distill_draws(plan, st.net, st.model, generator)
     row = plan[0]
     safe = row.clamp_min(0).long()
     label, idx = safe // st.vpc, safe % st.vpc
     dyn_rows = state["dynamic"].reshape((-1,) + state["dynamic"].shape[2:])
     with torch.no_grad():
-        x = net.hallucinate(state["hal_w"], state["hal_b"],
-                            state["static"][st.spc * label + 2 * idx + s_bits[0]],
-                            dyn_rows[label * st.dpc + 2 * idx + d_bits[0]],
-                            quant)
-        logits = net.forward(net.unflatten(theta0, st.channel,
-                                           st.num_classes),
-                             x, st.im_size, keeps[0], quant)
+        x = hallucinate(state["hal_w"], state["hal_b"],
+                        state["static"][st.spc * label + 2 * idx + s_bits[0]],
+                        dyn_rows[label * st.dpc + 2 * idx + d_bits[0]],
+                        quant)
+        logits = st.net.forward(st.net.unflatten(theta0, st.model), x,
+                                st.model, keeps[0], quant)
     return logits, row >= 0
 
 

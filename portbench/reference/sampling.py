@@ -21,7 +21,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .convnet3d import KEEP_PROB, keep_mask_shape
 
 
 def step_generator(seed: int, it: int, device) -> torch.Generator:
@@ -76,17 +75,21 @@ def batch_plan(rng: np.random.Generator, n: int, batch: int, steps: int
     return plan
 
 
-def distill_draws(plan: torch.Tensor, frames: int, im_size: int,
+def distill_draws(plan: torch.Tensor, net, m: dict,
                   generator: torch.Generator):
     """(dynamic bits, static bits, keep-masks (S, B, C, T', H', W')) of an
-    outer step, in the program's order."""
+    outer step, in the program's order; the keep-masks S Nones for a
+    ``net`` without dropout (no draw is made)."""
     d_bits = torch.randint(0, 2, plan.shape, generator=generator,
                            device=plan.device)
     s_bits = torch.randint(0, 2, plan.shape, generator=generator,
                            device=plan.device)
+    shape = net.keep_mask_shape(m)
+    if shape is None:
+        return d_bits, s_bits, [None] * plan.shape[0]
     keeps = torch.stack([
-        torch.rand((plan.shape[1],) + keep_mask_shape(frames, im_size),
-                   generator=generator, device=plan.device) < 1 - KEEP_PROB
+        torch.rand((plan.shape[1],) + shape, generator=generator,
+                   device=plan.device) < 1 - m["dropout"]
         for _ in range(plan.shape[0])])
     return d_bits, s_bits, keeps
 
@@ -109,16 +112,19 @@ def eval_slot_bits(generator, shape, spc: int, dpc: int, n_hal: int, device):
     return s, d
 
 
-def eval_keep(generator, nets: Optional[int], batch: int, frames: int,
-              im_size: int, device) -> torch.Tensor:
+def eval_keep(generator, nets: Optional[int], batch: int, net, m: dict,
+              device) -> Optional[torch.Tensor]:
     """The evaluation step's keep-mask as (nets, B, C, T', H', W') bool:
     batched training draws it (nets, B, T', H', W', C), one net (B, C, T',
-    H', W')."""
-    c, t, h, w = keep_mask_shape(frames, im_size)
+    H', W'); None, with no draw, for a ``net`` without dropout."""
+    shape = net.keep_mask_shape(m)
+    if shape is None:
+        return None
+    c, t, h, w = shape
     if nets is None:
         keep = torch.rand((batch, c, t, h, w), generator=generator,
-                          device=device) < 1 - KEEP_PROB
+                          device=device) < 1 - m["dropout"]
         return keep[None]
     keep = torch.rand((nets, batch, t, h, w, c), generator=generator,
-                      device=device) < 1 - KEEP_PROB
+                      device=device) < 1 - m["dropout"]
     return keep.permute(0, 1, 5, 2, 3, 4)

@@ -5,7 +5,8 @@ whose convolutions run one precision step down (fp8 for the bf16 cells,
 TF32 for the fp32 ones) comes out not correct through a run, on
 ``logit_gap``; on the card, the evaluation's TF32 control departs from the
 fp32 program. At the cells' own sizes the readings that set the limits
-come from ``portbench/calibrate.py`` on the card (PERF.md)."""
+come from ``portbench/calibrate.py`` on the card (PERF.md), through each
+loop's ``stand_in``."""
 
 import time
 
@@ -13,8 +14,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from portbench import calibrate
-from portbench.harness import bench
+from portbench.harness import bench, stand_ins
 
 SEED = 2 ** 31 + 21
 
@@ -23,15 +23,16 @@ def _program(root, workload, device):
     import tempfile
     cell = bench.load_cell(root, workload)
     with tempfile.TemporaryDirectory() as scratch:
-        return bench.LOOPS[cell.traffic["loop"]](
+        return bench.loop(root, cell.traffic["loop"]).run(
             cell, SEED, 0.0, False, device, scratch, time.perf_counter()).numbers
 
 
 def test_the_training_control_departs(toy_root):
     cpu = torch.device("cpu")
     program = _program(toy_root, "toy_distill", cpu)
-    control = calibrate.training_stand_in(bench.load_cell(toy_root, "toy_distill"),
-                                          SEED, cpu, "fp8")
+    cell = bench.load_cell(toy_root, "toy_distill")
+    control = bench.loop(toy_root, "distill_s2d").stand_in(cell, SEED, cpu,
+                                                           "fp8")
     for k in ("loss_gap", "grad_gap", "change_gap", "logit_gap"):
         assert control[k] > 1000 * max(program[k], 1e-9), (k, program, control)
 
@@ -60,7 +61,7 @@ class _LowConv:
 
 
 @pytest.mark.parametrize("workload,fn", [
-    ("toy_distill", calibrate.round_fp8),
+    ("toy_distill", stand_ins.round_fp8),
     ("toy_eval_vmap", round_tf32), ("toy_eval_seq", round_tf32)])
 def test_a_program_a_precision_step_down_is_not_correct(toy_root, monkeypatch,
                                                         workload, fn):
@@ -79,8 +80,9 @@ def test_a_program_a_precision_step_down_is_not_correct(toy_root, monkeypatch,
 @pytest.mark.cuda
 def test_the_evaluation_control_departs(toy_root, card):
     program = _program(toy_root, "toy_eval_seq", card)
-    control = calibrate.eval_stand_in(bench.load_cell(toy_root, "toy_eval_seq"),
-                                      SEED, card, "tf32")
+    cell = bench.load_cell(toy_root, "toy_eval_seq")
+    control = bench.loop(toy_root, "eval_train").stand_in(cell, SEED, card,
+                                                          "tf32")
     assert control["logit_gap"] > 100 * program["logit_gap"], (program, control)
 
 

@@ -30,6 +30,9 @@ def _half(masked_ce):
 
 
 def _plant_training(monkeypatch, fault):
+    # evaluate binds mtt.masked_ce as it is imported: import it before the
+    # patch, so that a later evaluation in this process trains unbroken
+    from video_distillation_torch.distill import evaluate  # noqa: F401
     from video_distillation_torch.distill import mtt
     call = mtt.S2DMTTStep.__call__
     if fault == "unchanged":

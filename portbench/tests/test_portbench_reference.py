@@ -8,10 +8,19 @@ import pytest
 import torch
 from torch.func import functional_call
 
-from portbench.harness import bench, inputs, loops
-from portbench.reference import convnet3d as net
+from portbench.harness import bench, inputs, registry
+from portbench.reference.hallucinator import hallucinate
 
 CPU = torch.device("cpu")
+NET = registry.find(bench.ROOT, "reference/nets", "ConvNet3D")
+
+
+def _model(num_classes=3, im=64, frames=8):
+    """The configuration's ``model`` of a ConvNet3D at these sizes."""
+    return {"name": "ConvNet3D", "channel": 3, "num_classes": num_classes,
+            "im_size": im, "frames": frames, "first_width": 64,
+            "net_width": 128, "net_depth": 3, "kernel": [3, 7, 7],
+            "dropout": 0.5}
 
 
 def _port_net(num_classes=3, im=64, frames=8, generator=None):
@@ -22,7 +31,7 @@ def _port_net(num_classes=3, im=64, frames=8, generator=None):
 
 def test_init_is_the_ports():
     _, theta = _port_net(generator=torch.Generator().manual_seed(5))
-    ref = net.init_theta(torch.Generator().manual_seed(5), 3, 3, CPU)
+    ref = NET.init_theta(torch.Generator().manual_seed(5), _model(), CPU)
     assert torch.equal(theta, ref)
 
 
@@ -32,9 +41,10 @@ def test_forward_is_the_ports(im, frames):
     model, theta = _port_net(4, im, frames, torch.Generator().manual_seed(1))
     g = torch.Generator().manual_seed(2)
     x = torch.randn((2, frames, im, im, 3), generator=g)
-    c, t, h, w = net.keep_mask_shape(frames, im)
+    m = _model(4, im, frames)
+    c, t, h, w = NET.keep_mask_shape(m)
     keep = torch.rand((2, c, t, h, w), generator=g) < 0.5
-    ours = net.forward(net.unflatten(theta, 3, 4), x, im, keep)
+    ours = NET.forward(NET.unflatten(theta, m), x, m, keep)
     theirs = functional_call(model, layout_for(model).unflatten(theta), (x,),
                              dict(train=True, keep_mask=keep.permute(0, 2, 3, 4, 1)))
     torch.testing.assert_close(ours, theirs, rtol=1e-5, atol=1e-5)
@@ -44,7 +54,7 @@ def test_hallucinate_is_the_ports():
     from video_distillation_torch.models.hallucinator import hal_apply
     st = inputs.s2d_state(3, 2, 2, 2, 4, 8, CPU)
     static, dynamic = st["static"][:2], st["dynamic"][:, 0]
-    ours = net.hallucinate(st["hal_w"], st["hal_b"], static, dynamic)
+    ours = hallucinate(st["hal_w"], st["hal_b"], static, dynamic)
     theirs = hal_apply({"weight": st["hal_w"], "bias": st["hal_b"]}, static,
                        dynamic)
     torch.testing.assert_close(ours, theirs, rtol=1e-5, atol=1e-5)
@@ -54,7 +64,7 @@ def _numbers(root, workload, seed):
     cell = bench.load_cell(root, workload)
     import tempfile
     with tempfile.TemporaryDirectory() as scratch:
-        run = loops.LOOPS[cell.traffic["loop"]](
+        run = bench.loop(root, cell.traffic["loop"]).run(
             cell, seed, 0.0, False, CPU, scratch, time.perf_counter())
     return run.numbers
 

@@ -1,4 +1,4 @@
-"""The counts that do not move with the program: the kernels' byte-bound
+"""The counts that do not move with the program: the kernels' bound
 times at the slice's shapes, each configuration's FLOPs, the peaks."""
 
 import json
@@ -6,15 +6,17 @@ import os
 
 import pytest
 
-from portbench.roofline import flops, kernels
+from portbench.harness import registry
+from portbench.roofline import flops
 from portbench.roofline.peaks import card_peaks
+from portbench.roofline.shapes import Shapes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SXM = card_peaks("NVIDIA H100 80GB HBM3")["bytes_per_s"]
+SXM = card_peaks("NVIDIA H100 80GB HBM3")
 # the slice: 500 clips composed, 50 a first-stage launch, 16 x 112 x 112, bf16
-SLICE = kernels.Shapes(compose=500, inner=50, frames=16, h=112, w=112, elem=2)
+SLICE = Shapes(compose=500, inner=50, frames=16, h=112, w=112, elem=2)
 # the evaluation's fp32 composition of 50 clips
-EVAL = kernels.Shapes(compose=50, inner=50, frames=16, h=112, w=112, elem=4)
+EVAL = Shapes(compose=50, inner=50, frames=16, h=112, w=112, elem=4)
 
 
 @pytest.mark.parametrize("kernel,shapes,ms", [
@@ -22,14 +24,21 @@ EVAL = kernels.Shapes(compose=50, inner=50, frames=16, h=112, w=112, elem=4)
     ("hal_wgrad", SLICE, 0.2509), ("hal_fused", EVAL, 0.0502),
     ("phase_argmax", SLICE, 0.1318), ("phase_select", SLICE, 0.1318),
     ("phase_scatter", SLICE, 0.1318), ("s2d2_pack", SLICE, 0.0799),
-    ("s2d2_unpack", SLICE, 0.0799), ("s2d2_pack", EVAL, 0.1597)])
+    ("s2d2_unpack", SLICE, 0.0799), ("s2d2_pack", EVAL, 0.1597),
+    ("conv3d_s2_fprop", SLICE, 0.3818)])
 def test_bound_ms_matches_the_kernel_table(kernel, shapes, ms):
-    assert round(kernels.bound_seconds(kernel, shapes, SXM) * 1e3, 4) == ms
+    entry = registry.find(ROOT, "roofline/kernels", kernel)
+    config = _config("convnet3d_ucf50_s2d_ipc1")
+    assert round(entry.bound(shapes, config, SXM) * 1e3, 4) == ms
 
 
 def _config(name):
     with open(os.path.join(ROOT, "portbench", "configs", f"{name}.json")) as f:
         return json.load(f)
+
+
+def _net(c):
+    return registry.find(ROOT, "reference/nets", c["model"]["name"])
 
 
 @pytest.mark.parametrize("name", ["convnet3d_ucf50_s2d_ipc1",
@@ -40,20 +49,19 @@ def test_stored_flops_are_the_references(name):
     n_syn = m["num_classes"] * d["vpc"]
     batch = min(d["batch_syn"] or n_syn, n_syn)
     assert c["flops"]["outer_step"] == flops.outer_step_flops(
-        m["num_classes"], m["channel"], m["im_size"], m["frames"],
-        d["syn_steps"], batch)
+        _net(c), m, d["syn_steps"], batch)
     if "eval_net_step" in c["flops"]:
         e = c["eval"]
         assert c["flops"]["eval_net_step"] == flops.eval_step_flops(
-            m["num_classes"], m["channel"], m["im_size"], m["frames"],
-            min(e["batch_train"], n_syn))
+            _net(c), m, min(e["batch_train"], n_syn))
 
 
 def test_flops_follow_the_forward_count():
     """An evaluation step is about three forward passes' worth of products
     (forward, input and weight gradients, less the first conv's input
     gradient): ConvNet3D's forward is 11.0 GFLOP a 112x112x16 clip."""
-    step = flops.eval_step_flops(50, 3, 112, 16, 1)
+    c = _config("convnet3d_ucf50_s2d_ipc1")
+    step = flops.eval_step_flops(_net(c), c["model"], 1)
     assert 2.5 * 11.0e9 < step < 3.0 * 11.0e9
 
 

@@ -1,6 +1,7 @@
 """Device and idle time by the program's spans (``harness/spans.py``), on
-events made up the way the profiler gives them, and, on the card, the
-program's transfer counters over a traced run of ``ucf_s2d_mtt``."""
+events made up the way the profiler gives them, as the digest carries
+them, and, on the card, the program's transfer counters over a traced run
+of ``ucf_s2d_mtt``."""
 
 import dataclasses
 import types
@@ -9,7 +10,7 @@ import warnings
 import pytest
 import torch
 
-from portbench.harness import bench, loops, spans, tracing
+from portbench.harness import bench, spans, tracing
 
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 
@@ -75,11 +76,17 @@ def test_a_program_without_spans_gives_nothing():
 
 
 def test_program_spans_leave_the_digest_as_it_was():
+    """The program's spans add their attribution to the digest and change
+    nothing else in it."""
     plain = [e for e in _events() if e.name not in NAMES]
     spanned = plain + [e for e in _events() if e.name in NAMES]
-    assert (dataclasses.asdict(tracing.digest(plain, 4.0, {"hal_fwd": 1}))
-            == dataclasses.asdict(tracing.digest(spanned, 4.0,
-                                                 {"hal_fwd": 1})))
+    a, b = (dataclasses.asdict(tracing.digest(ev, 4.0, {"hal_fwd": 1},
+                                              {"host_syncs": 2}))
+            for ev in (plain, spanned))
+    assert (a.pop("by_span"), a.pop("idle_by_span")) == ({}, {})
+    assert (b.pop("by_span"), b.pop("idle_by_span")) == spans.attribute(
+        _events(), NAMES)
+    assert a == b
 
 
 @pytest.mark.cuda
@@ -92,9 +99,7 @@ def test_counters_match_the_syncs(card, tmp_path, monkeypatch):
     no span shows as device work."""
     from video_distillation_torch.models.layers import _U2
     from video_distillation_torch.utils import profiling
-    counters, kept, marks = loops._counters, {"caught": []}, []
-    monkeypatch.setattr(loops, "_counters",
-                        lambda: {**counters(), **profiling.COUNTS})
+    kept, marks = {"caught": []}, []
     digest = tracing.digest
     start, stop = tracing.Window._start, tracing.Window._stop
 
@@ -113,19 +118,20 @@ def test_counters_match_the_syncs(card, tmp_path, monkeypatch):
     monkeypatch.setattr(tracing.Window, "_start", start_)
     monkeypatch.setattr(tracing.Window, "_stop", stop_)
     cell = bench.load_cell(bench.ROOT, "ucf_s2d_mtt")
+    loop = bench.loop(bench.ROOT, cell.traffic["loop"])
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             kept["caught"] = caught
-            run = loops.distill_s2d(cell, bench.program_seed(2 ** 31 + 12345),
-                                    1.0, True, card, str(tmp_path), 0.0)
+            run = loop.run(cell, bench.program_seed(2 ** 31 + 12345), 1.0,
+                           True, card, str(tmp_path), 0.0)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     d, events = run.digest, kept["events"]
     flagged = sum("synchronizing" in str(w.message)
                   for w in caught[marks[0]:marks[1]])
-    assert d.launches["host_syncs"] == flagged > 0
+    assert d.counts["host_syncs"] == flagged > 0
     traced = next(e for e in events if e.name == tracing.TRACED
                   and e.device_type == CPU)
     inside = [e for e in events if traced.time_range.start
@@ -134,12 +140,13 @@ def test_counters_match_the_syncs(card, tmp_path, monkeypatch):
                  if e.device_type == CPU)
     pageable = sum("Memcpy" in e.name and "Pageable" in e.name
                    for e in inside if e.device_type == CUDA)
-    assert 0 < scalar + pageable <= d.launches["host_syncs"]
+    assert 0 < scalar + pageable <= d.counts["host_syncs"]
     m, dist = cell.config["model"], cell.config["distill"]
     plan = dist["syn_steps"] * m["num_classes"] * dist["vpc"]
-    assert d.launches["h2d_bytes"] == d.units * (
+    assert d.counts["h2d_bytes"] == d.units * (
         8 * m["params"] + 4 * plan + dist["syn_steps"] * _U2.nbytes)
     assert not set(profiling.SPANS) & set(d.by_kernel)
-    by_span, _ = spans.attribute(events)
-    assert set(by_span) <= set(profiling.SPANS)
-    assert by_span["mtt.unroll"] > 0 and by_span["mtt.outer_grad"] > 0
+    assert (d.by_span, d.idle_by_span) == spans.attribute(events)
+    assert set(d.by_span) <= set(profiling.SPANS)
+    assert d.by_span["mtt.unroll"] > 0 and d.by_span["mtt.outer_grad"] > 0
+    assert d.launches["conv3d_s2_fprop"] > 0

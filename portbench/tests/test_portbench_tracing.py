@@ -36,11 +36,13 @@ def test_digest():
               _evt("add_kernel", 50, 55, CUDA),
               _evt("step", 0, 100, CUDA),  # the span's device-side copy
               _evt("late_kernel", 90, 120, CUDA)]
-    d = tracing.digest(events, 2.0, {"hal_fwd": 1})
+    d = tracing.digest(events, 2.0, {"hal_fwd": 1}, {"host_syncs": 3})
     assert d.window_us == 100
     assert d.busy_us == 45 + 10          # [10, 55) and [90, 100)
     assert d.conv_us == 30 + 15          # both kernels under the conv op
     assert d.by_kernel["late_kernel"] == 10
+    assert (d.launches, d.counts) == ({"hal_fwd": 1}, {"host_syncs": 3})
+    assert d.by_span == d.idle_by_span == {}   # no span of the program
     assert d.gaps[0] == ("step:aten::to", 35)   # [55, 90)
     assert {g[1] for g in d.gaps} == {35, 10}
     out = tracing.breakdown(d)

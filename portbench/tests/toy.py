@@ -13,7 +13,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 TOY_CONFIG = {
     "name": "toy_c3_s2d", "dataset": "toy_c3", "source": "test",
     "model": {"name": "ConvNet3D", "channel": 3, "num_classes": 3,
-              "im_size": 64, "frames": 8},
+              "im_size": 64, "frames": 8, "first_width": 64,
+              "net_width": 128, "net_depth": 3, "kernel": [3, 7, 7],
+              "dropout": 0.5},
     "distill": {"method": "MTT", "spc": 2, "dpc": 2, "vpc": 1, "n_hal": 1,
                 "no_train_static": True, "train_lr": True, "syn_steps": 2,
                 "expert_epochs": 1, "max_start_epoch": 2, "lr_teacher": 0.01,
